@@ -1,31 +1,55 @@
 #!/usr/bin/env python3
-"""Drive the sfmx_torch query-localization path once on one CUDA card.
+"""Drive the sfmx_torch query-localization and map-scale serving paths once
+on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
 Phases (each asserts; any failure exits non-zero):
-  1. device   — needs torch.cuda; prints the card and its power limit
-  2. build    — compiles the CUDA kernels K1-K3 from sfmx_torch/csrc
-  3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes (B=16, 480x640 and 240x320, L=5, K=1024/512),
-                max abs error beside the stated tolerance, CUDA-event times
-  4. map      — renders 24 keyframes of the textured room (640x480,
-                f=560), extracts them on the card, back-projects every
-                valid keypoint onto the room box at the true pose, and
-                builds a VLAD localization map
-  5. queries  — 16 held-out frames between keyframe poses through
-                ``localize_images`` with the default PipelineConfig (the
-                main path; kernel launch counts are taken around it), the
-                0.2 m median-error gate; then 4 of them on the card against
-                the plain path on the CPU with the same RANSAC noise, and the
-                gather-path tripwire of bench.py on the port
-  6. rate     — steady-state query-path frames/s (extraction + localize)
-  7. profile  — only with --profile: device time per batch of extraction,
-                localization and the whole path under torch.profiler, the
-                device's busy share of the wall time, the top device ops;
-                the profiler's table goes to chiprun_out/profile_query.txt
-  8. counters — K1/K2/K3 kernel launches of the main-path run, checked
-                against the count the path implies
+  1. device     — needs torch.cuda; prints the card and its power limit
+  2. build      — compiles the CUDA kernels K1-K4 from sfmx_torch/csrc, one
+                  nvcc per source, all started together
+  3. kernels    — K1-K3 against their plain PyTorch versions at the gather
+                  path's shapes (B=16, 480x640 and 240x320, L=5, K=1024/512),
+                  max abs error beside the stated tolerance, CUDA-event times;
+                  again at the serving run's batches (B=32 and the B=2 tail)
+                  after phase 8, and the B=32 numbers go in the kernels line
+  4. map        — renders 24 keyframes of the textured room (640x480,
+                  f=560), extracts them on the card, back-projects every
+                  valid keypoint onto the room box at the true pose, and
+                  builds a VLAD localization map (with majority-vote bits)
+  5. queries    — 16 held-out frames through ``localize_images`` with the
+                  default PipelineConfig (gather path; kernel launch counts
+                  are taken around it), the 0.2 m median-error gate; then 4
+                  of them on the card against the plain path on the CPU with
+                  the same RANSAC noise, and the gather-path tripwire of
+                  bench.py on the port
+  6. rate       — steady-state gather-path frames/s (extraction + localize)
+  7. tracking, p3p, binary — the 16 frames through ``localize_sequence``
+                  (most must be tracked), with ``pnp_solver="p3p"`` and with
+                  Hamming matching on the map's bits, each under the gate
+  8. map-scale  — the 24 keyframes merged to one landmark per surface cell,
+                  plus distractor rooms (other textures, translated away) up
+                  to >= 131,072 landmarks, so ``streaming="auto"`` picks K4
+  9. K4         — match_top2 against its plain version on the first serving
+                  batch's query descriptors (32x1024 rows) vs the whole pool
+ 10. serve      — 8 bursts, one after another, of 66 concurrent image
+                  requests through ``LocalizationService`` (max_batch 32,
+                  window 5 ms) under asyncio.gather, a quarter with a beacon
+                  prior, two with their own intrinsics; gates over all 528:
+                  streaming chosen, median center error < 0.2 m, >= 75 %
+                  localized, batches < requests, K4 launches == batches (each
+                  batch is one streaming localize call); p50/p95/p99 latency
+                  over all requests, mean batch, requests/s
+ 11. streaming  — one B=32 batch through ``localize_batch_streaming`` on the
+                  card and on the CPU's plain path with the same RANSAC
+                  noise (centers within 3 cm), and steady-state frames/s of
+                  extraction + streaming localize at B=32
+ 12. profile    — only with --profile: device time per batch of each stage
+                  of both paths under torch.profiler, the device's busy
+                  share of the wall time, the top device ops; the tables go
+                  to chiprun_out/profile_*.txt
+ 13. counters   — launches of the gather path's run against the count it
+                  implies, and of the serving run (K1-K4 all > 0)
 The last two lines are the kernel JSON and the device JSON.
 """
 from __future__ import annotations
@@ -43,6 +67,11 @@ W_IMG, H_IMG, FOCAL = 640, 480, 560.0
 N_KEYFRAMES, N_QUERIES = 24, 16
 INTR = np.array([FOCAL, FOCAL, W_IMG / 2, H_IMG / 2, 0.0, 0.0, 0.0], np.float32)
 MEDIAN_GATE_M = 0.2
+MAP_SCALE_LANDMARKS = 131072   # >= 2x LocalizeConfig.streaming_min_landmarks
+N_SERVE, SERVE_BATCH, SERVE_WINDOW_MS = 64, 32, 5.0
+N_BURSTS = 8                   # serving bursts, one after another, on one service
+FOCAL_OWN = 600.0              # the two requests that carry their own intrinsics
+RENDER_WORKERS = 8
 
 # kernel name -> (source, TPU kernel it replaces, stated tolerance on max abs error)
 KERNELS = {
@@ -52,11 +81,15 @@ KERNELS = {
                         "sfmx/kernels/pallas_scale_space.py:141", 1e-6),
     "describe_upright": ("sfmx_torch/csrc/describe.cu",
                          "sfmx/kernels/pallas_describe.py:172", 1e-5),
+    "match_top2": ("sfmx_torch/csrc/match_top2.cu",
+                   "sfmx/kernels/pallas_match.py:100", 1e-5),
 }
 # Tolerances: K1 — the kernel contracts multiply-adds into FMAs and the
 # Perona-Malik steps amplify last-bit differences (levels lie in [0,1]);
 # K2 — responses peak near 1e-2, so 1e-6 is 1e-4 relative; K3 — cell means
-# of [0,1] samples, summed in another order than the plain version.
+# of [0,1] samples, summed in another order than the plain version; K4 —
+# scores of unit vectors in [-1,1]: the bf16 products are exact in f32 and
+# only the order of the 128-term sums differs.
 
 
 def log(msg: str) -> None:
@@ -110,17 +143,21 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from sfmx_torch.kernels import _build
 
     t0 = time.perf_counter()
-    for lib in ("scale_space", "describe"):
-        _build.load(lib)
+    libs = ("scale_space", "describe", "match_top2")
+    with ThreadPoolExecutor(len(libs)) as ex:      # one nvcc per source, together
+        list(ex.map(_build.load, libs))
     log(f"[build] {time.perf_counter() - t0:.2f} s "
         f"(nvcc per library: {json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})})")
 
 
 def phase_kernels(images, dev) -> dict:
-    """Each kernel vs its plain version on the main path's inputs."""
+    """K1-K3 vs their plain versions on a batch of the main path's inputs
+    (both octaves); returns octave 0's times and the larger error."""
     import torch
 
     from sfmx_torch.kernels import describe as dsc
@@ -206,15 +243,17 @@ def phase_map(tex, dev):
     feats = extract_features(frames, cfg, dev)
     uv = feats.kp.uv.cpu().numpy()
     mask = feats.kp.mask.cpu().numpy()
+    desc = feats.desc.cpu().numpy()
     scene, obs_feat = smoke_scenes.room_scene(poses, uv, mask, INTR, room.ROOM)
-    lmap = build_localization_map(scene, feats.desc.cpu().numpy(), obs_feat, dev,
-                                  kp_mask=mask, n_words=64, seed=0)
+    lmap = build_localization_map(scene, desc, obs_feat, dev, kp_mask=mask, n_words=64,
+                                  seed=0, feat_bits=feats.desc_bits.cpu().numpy())
     P = lmap.X.shape[0]
     assert lmap.vocab is not None, "map has no VLAD vocabulary"
+    assert lmap.lm_bits is not None, "map has no landmark bits"
     assert P < cfg.localize.streaming_min_landmarks, f"{P} landmarks would need streaming"
     log(f"[map] {N_KEYFRAMES} keyframes rendered in {t_render:.1f} s; "
         f"{int(mask.sum())} keypoints -> {P} landmarks, vocab {tuple(lmap.vocab.shape)}")
-    return lmap
+    return lmap, (poses, desc, uv, mask)
 
 
 def query_poses():
@@ -339,8 +378,9 @@ def query_path(frames, lmap, dev):
     return extract, localize
 
 
-def phase_rate(extract, localize, n_frames: int, smi: str, reps: int = 5) -> float:
-    """Steady-state query-path frames/s on the device: extraction + localize.
+def phase_rate(extract, localize, n_frames: int, smi: str, reps: int = 5,
+               label: str = "query path") -> float:
+    """Steady-state frames/s on the device: extraction + localize.
     Returns the median wall time of one batch in seconds."""
     import torch
 
@@ -358,7 +398,7 @@ def phase_rate(extract, localize, n_frames: int, smi: str, reps: int = 5) -> flo
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
-    log(f"[rate] query path B={n_frames} {H_IMG}x{W_IMG}: {n_frames / wall:.2f} frames/s "
+    log(f"[rate] {label} B={n_frames} {H_IMG}x{W_IMG}: {n_frames / wall:.2f} frames/s "
         f"(median {wall * 1e3:.2f} ms per batch of {reps}; extraction {ms_extract:.2f} ms, "
         f"localization {ms_localize:.2f} ms by CUDA events) on {smi}")
     return wall
@@ -387,27 +427,315 @@ def device_ms_per_run(fn, reps: int):
     return sum(by_name.values()), by_name, table
 
 
-def phase_profile(extract, localize, wall: float, smi: str, reps: int = 3):
+def phase_profile(stages: dict, wall: float, smi: str, tag: str, n_frames: int,
+                  reps: int = 3):
     """Device time of each stage and of the whole path under torch.profiler,
     and the device's busy share of the unprofiled wall time per batch.  The
-    full table goes to chiprun_out/profile_query.txt."""
+    full table goes to chiprun_out/profile_<tag>.txt."""
     def path():
-        extract()
-        localize()
+        for fn in stages.values():
+            fn()
 
-    ms_e, _, _ = device_ms_per_run(extract, reps)
-    ms_l, _, _ = device_ms_per_run(localize, reps)
+    ms = {k: device_ms_per_run(fn, reps)[0] for k, fn in stages.items()}
     ms_p, by_name, table = device_ms_per_run(path, reps)
     assert ms_p > 0, "the profiler recorded no device time"
-    log(f"[profile] device time per batch (torch.profiler, {reps} batches each): "
-        f"extraction {ms_e:.3f} ms, localization {ms_l:.3f} ms, whole path {ms_p:.3f} ms; "
-        f"wall per batch without the profiler {wall * 1e3:.2f} ms; "
-        f"device busy {ms_p / (wall * 1e3):.3f} of it, on {smi}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[profile]   {ms:8.3f} ms  {name[:100]}")
-    out = ROOT / "chiprun_out" / "profile_query.txt"
+    log(f"[profile] {tag} B={n_frames}: device time per batch (torch.profiler, {reps} "
+        f"batches each): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f", whole path {ms_p:.3f} ms; wall per batch without the profiler "
+        f"{wall * 1e3:.2f} ms; device busy {ms_p / (wall * 1e3):.3f} of it, on {smi}")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   {t:8.3f} ms  {name[:100]}")
+    out = ROOT / "chiprun_out" / f"profile_{tag}.txt"
     out.parent.mkdir(exist_ok=True)
-    out.write_text(f"{smi}\nwhole path, {reps} batches\n{table}\n")
+    out.write_text(f"{smi}\n{tag} path, whole path, {reps} batches\n{table}\n")
+
+
+# ---------------------------------------------------------------------------
+# Tracking, P3P and binary matching on the 24-keyframe map
+# ---------------------------------------------------------------------------
+
+
+def _gate(tag: str, results, poses, min_localized: int) -> float:
+    errs = [float(np.linalg.norm(np.asarray(r["center"]) - eye))
+            for r, (_R, _t, eye) in zip(results, poses)]
+    assert all(np.isfinite(errs)), f"{tag}: non-finite pose"
+    med = float(np.median(errs))
+    n_conf = sum(r["confidence"] > 0 for r in results)
+    log(f"[{tag}] median center error {med:.4f} m (gate < {MEDIAN_GATE_M}); "
+        f"{n_conf}/{len(results)} with confidence > 0 (gate >= {min_localized})")
+    assert med < MEDIAN_GATE_M, f"{tag}: median center error {med} m"
+    assert n_conf >= min_localized, f"{tag}: only {n_conf} localized"
+    return med
+
+
+def phase_tracking(frames, lmap, dev):
+    """The 16 held-out frames, in walk order, as one tracked sequence."""
+    import dataclasses
+
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.main import localize_images, localize_sequence_images
+
+    poses = query_poses()
+    t0 = time.perf_counter()
+    out = localize_sequence_images(frames, INTR, lmap, PipelineConfig(),
+                                   generator=torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    n_tracked = sum(f["tracked"] for f in out["frames"])
+    log(f"[tracking] {len(frames)} frames in {time.perf_counter() - t0:.2f} s: "
+        f"stats {json.dumps(out['stats'])}, {n_tracked} tracked (gate >= {len(frames) - 4})")
+    assert n_tracked >= len(frames) - 4, f"only {n_tracked} frames tracked"
+    _gate("tracking", out["frames"], poses, len(frames) - 4)
+
+    cfg = PipelineConfig()
+    for tag, lc in (("p3p", dataclasses.replace(cfg.localize, pnp_solver="p3p")),
+                    ("binary", dataclasses.replace(cfg.localize, binary=True))):
+        res = localize_images(frames, INTR, lmap, dataclasses.replace(cfg, localize=lc),
+                              generator=torch.Generator(device=dev).manual_seed(6))
+        _gate(tag, res, poses, 12)
+
+
+# ---------------------------------------------------------------------------
+# Map-scale serving on K4
+# ---------------------------------------------------------------------------
+
+
+def phase_map_scale(kf, dev):
+    """The query room's 24 keyframes merged to one landmark per surface
+    cell, plus distractor rooms (other RoomTexture seeds, 24 keyframes
+    each, one landmark per keypoint, translated 20 m apart along x) until
+    the map holds >= MAP_SCALE_LANDMARKS landmarks."""
+    from examples import room
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.localize.localize import build_localization_map, use_streaming
+    from tests import smoke_scenes
+
+    t0 = time.perf_counter()
+    poses, desc, uv, mask = kf
+    cfg = PipelineConfig()
+    scene, obs_feat = smoke_scenes.merged_room_scene(poses, uv, mask, INTR, room.ROOM)
+    n_query_room = len(scene["X"])
+    parts, descs, masks = [(scene, obs_feat, np.zeros(3))], [desc], [mask]
+    P, t_render, room_id = n_query_room, 0.0, 0
+    while P < MAP_SCALE_LANDMARKS:
+        room_id += 1
+        t1 = time.perf_counter()
+        frames = smoke_scenes.render_parallel(1000 + room_id, poses, W_IMG, H_IMG, FOCAL,
+                                              RENDER_WORKERS)
+        t_render += time.perf_counter() - t1
+        f = extract_features(frames, cfg, dev)
+        m = f.kp.mask.cpu().numpy()
+        sc, of = smoke_scenes.room_scene(poses, f.kp.uv.cpu().numpy(), m, INTR, room.ROOM)
+        parts.append((sc, of, np.array([20.0 * room_id, 0.0, 0.0])))
+        descs.append(f.desc.cpu().numpy())
+        masks.append(m)
+        P += len(sc["X"])
+    cols, obs = smoke_scenes.combine_scenes(parts)
+    lmap = build_localization_map(cols, np.concatenate(descs), obs, dev,
+                                  kp_mask=np.concatenate(masks), n_words=64, seed=0)
+    P = lmap.X.shape[0]
+    assert P >= MAP_SCALE_LANDMARKS and use_streaming(cfg.localize, lmap, binary=False), P
+    log(f"[map-scale] query room {N_KEYFRAMES} keyframes -> {n_query_room} merged landmarks "
+        f"(1.5 cm cells); {room_id} distractor rooms x {N_KEYFRAMES} keyframes rendered in "
+        f"{t_render:.1f} s ({RENDER_WORKERS} processes); map {P} landmarks, "
+        f"{lmap.kf_gdesc.shape[0]} keyframes, streaming=auto picks K4; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return lmap
+
+
+def serve_poses():
+    """Held-out poses of the query room, none equal to a keyframe pose."""
+    from examples import room
+
+    return room.walk_poses(2 * N_SERVE + 1)[1::2]
+
+
+def phase_k4(lmap, frames, dev) -> dict:
+    """K4 against its plain version on the first serving batch's query
+    descriptors (32 x 1024 rows) against the whole pool, padded and masked
+    as ``match_float_streaming`` does."""
+    import torch
+    import torch.nn.functional as TF
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.core.masking import round_up
+    from sfmx_torch.kernels import match as mt
+
+    f = extract_features(frames[:SERVE_BATCH], PipelineConfig(), dev)
+    B, K, D = f.desc.shape
+    a = torch.where(f.kp.mask.reshape(-1)[:, None], f.desc.reshape(B * K, D), 0.0)
+    b = torch.where(lmap.lm_alive[:, None], lmap.lm_desc, 0.0)
+    a = TF.pad(a, (0, 0, 0, round_up(a.shape[0], 256) - a.shape[0]))
+    b = TF.pad(b, (0, 0, 0, round_up(b.shape[0], 2048) - b.shape[0]))
+    out = mt.match_top2(a, b)
+    ref = mt.match_top2_plain(a, b)
+    torch.cuda.synchronize()
+    tol = KERNELS["match_top2"][2]
+    err = max(float((out[0] - ref[0]).abs().max()), float((out[2] - ref[2]).abs().max()))
+    clear = (ref[0] - ref[2]) > tol
+    bad = int((out[1] != ref[1])[clear].sum())
+    near = int((out[1] != ref[1])[~clear].sum())
+    ms = cuda_ms(lambda: mt.match_top2(a, b))
+    pms = cuda_ms(lambda: mt.match_top2_plain(a, b), reps=3, warm=1)
+    flop = 2.0 * a.shape[0] * b.shape[0] * 128
+    log(f"[K4] match_top2 {tuple(a.shape)} x {tuple(b.shape)} bf16: max_abs_err {err:.3e} "
+        f"(tol {tol:.0e}); index mismatches {bad} outside near-ties ({int(clear.sum())} rows), "
+        f"{near} among {int((~clear).sum())} near-tie rows; kernel {ms:.3f} ms "
+        f"({flop / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms")
+    assert err <= tol, f"match_top2: max_abs_err {err} > {tol}"
+    assert bad == 0, f"match_top2: {bad} index mismatches outside near-ties"
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+
+
+def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
+    """Concurrent image requests through the service on the map-scale map.
+    Returns the kernel launches of the serving run."""
+    import asyncio
+
+    import torch
+
+    import sfmx_torch.serve.server as server
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.localize.fusion import BeaconPrior
+    from sfmx_torch.localize.localize import use_streaming
+
+    cfg = PipelineConfig()
+    svc = server.LocalizationService(batch_window_ms=SERVE_WINDOW_MS, max_batch=SERVE_BATCH)
+    svc.load_map("building", lmap, INTR, cfg=cfg)
+    t0 = time.perf_counter()
+    svc.warmup("building")
+    log(f"[serve] warmup (one batch of {SERVE_BATCH} blank images) {time.perf_counter() - t0:.2f} s")
+    # every batch is one (map, K, non-binary) group on the streaming path,
+    # so each batch is one streaming localize call
+    assert use_streaming(cfg.localize, lmap, binary=False)
+    poses = serve_poses()
+    own_intr = np.array([FOCAL_OWN, FOCAL_OWN, W_IMG / 2, H_IMG / 2, 0, 0, 0], np.float32)
+    rng = np.random.default_rng(11)
+    reqs = []
+    for i, (_R, _t, eye) in enumerate(poses):
+        prior = None
+        if i % 4 == 1:      # a quarter carry a beacon prior ~0.5 m off
+            off = rng.normal(size=3)
+            prior = BeaconPrior(torch.tensor(eye + 0.5 * off / np.linalg.norm(off),
+                                             dtype=torch.float32), 5.0, 0.5)
+        reqs.append(dict(image=frames[i], prior=prior))
+    reqs += [dict(image=img, intr=own_intr) for img in own_frames]
+    eyes = [eye for _R, _t, eye in poses] + [eye for _R, _t, eye in serve_poses()[:len(own_frames)]]
+
+    async def run():
+        await svc.start()
+        try:
+            outs, walls = [], []
+            for _ in range(N_BURSTS):
+                t0 = time.perf_counter()
+                outs += await asyncio.gather(*[svc.localize("building", **r) for r in reqs])
+                walls.append(time.perf_counter() - t0)
+            return outs, walls
+        finally:
+            await svc.stop()
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    outs, walls = asyncio.run(run())
+    launches = dict(_build.LAUNCHES.counts)
+
+    n = len(outs)
+    eyes, reqs_all = eyes * N_BURSTS, reqs * N_BURSTS
+    errs = np.array([np.linalg.norm(np.asarray(o["center"]) - e) for o, e in zip(outs, eyes)])
+    # localized = the vision pose passed (n_inliers >= min_inliers, i.e. its
+    # confidence > 0); the returned confidence is the beacon-fused one
+    n_loc = sum(o["n_inliers"] >= cfg.localize.min_inliers for o in outs)
+    st = svc.stats.snapshot()
+    for i in range(0, len(reqs), 8):
+        log(f"[serve] {i:2d}: center error {errs[i]:.4f} m, {outs[i]['n_inliers']} inliers, "
+            f"confidence {outs[i]['confidence']:.3f}, source {outs[i]['source']}")
+    own = np.concatenate([errs[b * len(reqs) + N_SERVE:(b + 1) * len(reqs)]
+                          for b in range(N_BURSTS)])
+    log(f"[serve] {N_BURSTS} bursts of {len(reqs)} requests "
+        f"({sum(r.get('prior') is not None for r in reqs)} with a beacon prior, "
+        f"{len(own_frames)} with own intrinsics f={FOCAL_OWN:g}: max error {own.max():.4f} m); "
+        f"burst walls {', '.join(f'{w:.3f}' for w in walls)} s; {n} requests in "
+        f"{sum(walls):.3f} s = {n / sum(walls):.2f} requests/s; {st['batches']} batches, "
+        f"mean batch {st['mean_batch_size']:.2f}; latency over all {n} requests p50 "
+        f"{st['p50_latency_ms']:.1f} ms, p95 {st['p95_latency_ms']:.1f} ms, p99 "
+        f"{st['p99_latency_ms']:.1f} ms; median center error {np.median(errs):.4f} m "
+        f"(gate < {MEDIAN_GATE_M}); {n_loc}/{n} localized by vision; on {smi}")
+    log(f"[serve] launches {json.dumps(launches)}")
+    assert np.isfinite(errs).all(), "serve: non-finite pose"
+    assert np.median(errs) < MEDIAN_GATE_M, f"serve: median center error {np.median(errs)}"
+    assert n_loc >= 0.75 * n, f"serve: only {n_loc}/{n} localized"
+    assert st["requests"] == n and st["batches"] < n, st
+    assert launches.get("match_top2", 0) == st["batches"], (launches, st)
+    assert np.all(own < MEDIAN_GATE_M), f"serve: own-intrinsics requests off by {own}"
+    assert all((o["source"] == 0) == (r.get("prior") is None)
+               for o, r in zip(outs, reqs_all)), "serve: unexpected fusion sources"
+    return launches
+
+
+def streaming_path(frames, lmap, dev):
+    """Extraction + ``localize_batch_streaming`` on one device-resident
+    B=32 batch, as two closures (the serving path without the queue)."""
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.localize.localize import localize_batch_streaming
+
+    cfg = PipelineConfig()
+    lc = cfg.localize
+    imgs = torch.as_tensor(frames[:SERVE_BATCH], device=dev)
+    intr = torch.as_tensor(INTR, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    state = {}
+
+    def extract():
+        state["f"] = extract_features(imgs, cfg, dev)
+
+    def localize():
+        f = state["f"]
+        localize_batch_streaming(lmap, f.desc, f.kp.uv, f.kp.mask, intr, generator=gen,
+                                 k_hypotheses=lc.k_hypotheses, px_thresh=lc.px_thresh,
+                                 sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers)
+
+    extract()
+    return extract, localize, state
+
+
+def phase_streaming_crosscheck(lmap, state, dev):
+    """One B=32 streaming batch on the card and on the CPU's plain path
+    (plain K4 included) with the same features and RANSAC noise: centers
+    within 3 cm, as phase 5 states for the gather path."""
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.localize.localize import LocalizationMap, localize_batch_streaming
+    from sfmx_torch.solvers.ransac import gumbel_noise
+
+    lc = PipelineConfig().localize
+    f = state["f"]
+    B, K, _ = f.desc.shape
+    g = gumbel_noise((B, lc.k_hypotheses, K), device="cpu",
+                     generator=torch.Generator().manual_seed(4))
+    kw = dict(k_hypotheses=lc.k_hypotheses, px_thresh=lc.px_thresh,
+              sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers)
+    card = localize_batch_streaming(lmap, f.desc, f.kp.uv, f.kp.mask,
+                                    torch.as_tensor(INTR, device=dev), gumbel=g.to(dev), **kw)
+    t0 = time.perf_counter()
+    cpu_map = LocalizationMap(*(None if x is None else x.cpu() for x in lmap))
+    plain = localize_batch_streaming(cpu_map, f.desc.cpu(), f.kp.uv.cpu(), f.kp.mask.cpu(),
+                                     torch.as_tensor(INTR), gumbel=g, **kw)
+    t_cpu = time.perf_counter() - t0
+    dc = torch.linalg.vector_norm(card.center.cpu() - plain.center, dim=-1)
+    dn = (card.n_inliers.cpu() - plain.n_inliers).abs()
+    log(f"[streaming] B={B} card vs plain CPU path ({t_cpu:.1f} s on the CPU): centers "
+        f"max {float(dc.max()):.2e} m apart (gate < 0.03), inliers max |diff| {int(dn.max())} "
+        f"of {int(plain.n_inliers.min())}..{int(plain.n_inliers.max())}")
+    assert float(dc.max()) < 0.03, f"streaming card vs plain centers {float(dc.max())} m apart"
 
 
 def main() -> int:
@@ -419,20 +747,47 @@ def main() -> int:
     from examples import room
     from sfmx_torch.cli.config import PipelineConfig
     from sfmx_torch.kernels import features as F
+    from tests import smoke_scenes
 
+    t_start = time.perf_counter()
+    profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     phase_build()
     tex = room.RoomTexture(seed=0)
     probe = render(tex, query_poses())
-    kstats = phase_kernels(probe, dev)
-    lmap = phase_map(tex, dev)
+    phase_kernels(probe, dev)
+    lmap, kf = phase_map(tex, dev)
     frames, launches = phase_queries(tex, lmap, dev)
     phase_crosscheck(frames, lmap, dev)
     phase_tripwire(dev)
     extract, localize = query_path(frames, lmap, dev)
     wall = phase_rate(extract, localize, len(frames), smi)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(extract, localize, wall, smi)
+    if profile:
+        phase_profile({"extraction": extract, "localization": localize}, wall, smi,
+                      "query", len(frames))
+    phase_tracking(frames, lmap, dev)
+
+    big = phase_map_scale(kf, dev)
+    t0 = time.perf_counter()
+    serve_frames = smoke_scenes.render_parallel(0, serve_poses(), W_IMG, H_IMG, FOCAL,
+                                                RENDER_WORKERS)
+    own_frames = smoke_scenes.render_parallel(0, serve_poses()[:2], W_IMG, H_IMG, FOCAL_OWN,
+                                              RENDER_WORKERS)
+    log(f"[serve] {len(serve_frames) + len(own_frames)} held-out frames rendered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # K1-K3 again at the serving run's batch shapes: a full batch of 32 (its
+    # errors and times go into the kernels line beside the serving-run
+    # launches) and the tail batch of the two own-intrinsics requests
+    kstats = phase_kernels(serve_frames[:SERVE_BATCH], dev)
+    phase_kernels(own_frames, dev)
+    kstats["match_top2"] = phase_k4(big, serve_frames, dev)
+    serve_launches = phase_serve(big, serve_frames, own_frames, dev, smi)
+    s_extract, s_localize, s_state = streaming_path(serve_frames, big, dev)
+    phase_streaming_crosscheck(big, s_state, dev)
+    s_wall = phase_rate(s_extract, s_localize, SERVE_BATCH, smi, label="streaming path")
+    if profile:
+        phase_profile({"extraction": s_extract, "streaming localization": s_localize},
+                      s_wall, smi, "streaming", SERVE_BATCH)
 
     # one chunk of 16 queries through 2 octaves; per octave, K1 launches one
     # kernel per FED step of its 4 level segments, K2 two (gradients, then
@@ -444,12 +799,16 @@ def main() -> int:
     expected = {"diffuse_segment": n_steps * n_oct * n_chunks,
                 "response_levels": 2 * n_oct * n_chunks,
                 "describe_upright": n_oct * n_chunks}
-    log(f"[counters] main-path launches {json.dumps(launches)}; expected {json.dumps(expected)}")
+    log(f"[counters] gather-path launches {json.dumps(launches)}; expected {json.dumps(expected)}")
     for k, n in expected.items():
         assert launches.get(k, 0) == n > 0, f"{k}: {launches.get(k, 0)} launches, expected {n}"
+    log(f"[counters] serving-run launches {json.dumps(serve_launches)}")
+    for k in KERNELS:
+        assert serve_launches.get(k, 0) > 0, f"{k} was not launched in the serving run"
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
 
     kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
-                "launches": launches[k], **kstats[k]} for k in KERNELS]
+                "launches": serve_launches[k], **kstats[k]} for k in KERNELS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

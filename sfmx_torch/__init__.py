@@ -4,12 +4,16 @@ The package mirrors ``sfmx``'s sub-packages and module names so that each
 counterpart is easy to find:
 
 - ``sfmx_torch.core``     — SE(3)/SO(3), camera models, masking utilities
-- ``sfmx_torch.kernels``  — extraction (AKAZE-analog, upright) and the
-  hand-written CUDA kernels K1-K3 with their plain PyTorch versions
-- ``sfmx_torch.solvers``  — small linear algebra, PnP, batched RANSAC
+- ``sfmx_torch.kernels``  — extraction (AKAZE-analog, upright), matching
+  helpers and the hand-written CUDA kernels K1-K4 with their plain
+  PyTorch versions
+- ``sfmx_torch.solvers``  — small linear algebra, PnP (DLT, P3P), batched RANSAC
 - ``sfmx_torch.mapstore`` — the ``.npy``-column stores ``sfmx`` writes
-- ``sfmx_torch.localize`` — VLAD retrieval, gather-path query localization
-- ``sfmx_torch.cli``      — config tree, extraction dispatch, batch localize
+- ``sfmx_torch.localize`` — VLAD retrieval, gather and streaming query
+  localization, beacon fusion, sequential tracking
+- ``sfmx_torch.serve``    — the micro-batching localization service + HTTP API
+- ``sfmx_torch.cli``      — config tree, extraction dispatch, batch and
+  sequential localize, map loading, serve
 
 It imports ``torch`` and never ``jax`` or ``sfmx``.  Device placement is
 explicit: every function works on the device of its inputs (or the

@@ -43,10 +43,10 @@ class LocalizeConfig:
     px_thresh: float = 4.0
     sim_thresh: float = 0.75
     min_inliers: int = 12
-    binary: bool = False        # Hamming 2D-3D matching (not ported)
+    binary: bool = False        # Hamming 2D-3D matching (gather path)
     ham_thresh: float = 120.0
-    pnp_solver: str = "dlt6"    # dlt6 | p3p (not ported)
-    streaming: str = "auto"     # off | on | auto (streaming needs K4: not ported)
+    pnp_solver: str = "dlt6"    # dlt6 | p3p
+    streaming: str = "auto"     # off | on | auto (map-size gated, kernel K4)
     streaming_min_landmarks: int = 65536
 
 

@@ -10,6 +10,10 @@ import torch
 NEG_INF = -1e30
 
 
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 def topk_lowest_index(x: torch.Tensor, k: int):
     """Top-k over the last axis with ``lax.top_k``'s tie rule.
 

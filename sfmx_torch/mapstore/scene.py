@@ -2,7 +2,9 @@
 
 A store is a directory of raw ``.npy`` files, one per column, plus a JSON
 manifest; columns re-open with ``np.load(..., mmap_mode="r")``.  The format
-is framework-neutral, so the port reads what ``sfmx`` writes.
+is framework-neutral, so the port reads what ``sfmx`` writes.  A scene
+(``load_scene_np``) is kept as a mapping of numpy columns; the device-side
+``Scene`` belongs to the map-build path.
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ import shutil
 from pathlib import Path
 
 import numpy as np
+
+FORMAT_VERSION = 2
+# the reference Scene's columns, in its field order
+SCENE_FIELDS = ("intr", "cam_k", "cam_R", "cam_t", "cam_alive", "X", "X_alive",
+                "obs_cam", "obs_pt", "obs_uv", "obs_alive")
 
 
 def save_columns(path: str | Path, cols: dict[str, np.ndarray], manifest: dict):
@@ -54,3 +61,17 @@ def load_columns(path: str | Path, *, mmap: bool = True) -> dict[str, np.ndarray
         raise FileNotFoundError(f"no manifest at {path}")
     mode = "r" if mmap else None
     return {k: np.load(path / f"{k}.npy", mmap_mode=mode) for k in man["columns"]}
+
+
+def load_scene_np(path: str | Path, *, mmap: bool = True) -> dict[str, np.ndarray]:
+    """Host-side scene column load.  v2 directory stores mmap (nothing is
+    materialized until touched); legacy v1 ``.npz`` files decompress."""
+    path = Path(path)
+    man = load_manifest(path)
+    if man and man["format_version"] > FORMAT_VERSION:
+        raise ValueError(f"scene format {man['format_version']} newer than supported")
+    if path.is_dir():
+        mode = "r" if mmap else None
+        return {k: np.load(path / f"{k}.npy", mmap_mode=mode) for k in SCENE_FIELDS}
+    with np.load(path) as z:  # v1: compressed npz, not mmap-able
+        return {k: z[k] for k in z.files}

@@ -35,16 +35,20 @@ def sample_minimal(gumbel: torch.Tensor, mask: torch.Tensor, sample_size: int) -
 
 def ransac(gumbel: torch.Tensor, solver: Callable, residual_fn: Callable,
            data: tuple, mask: torch.Tensor, *, sample_size: int,
-           inlier_threshold: float):
+           inlier_threshold: float | torch.Tensor, n_candidates: int = 1):
     """Generic batched RANSAC.
 
     gumbel: (...,k_hyp,N) sampling noise (see ``gumbel_noise``).
     solver: (sampled data (...,k_hyp,s,·) ...) -> model tuple with leading
-      (...,k_hyp) axes.
+      (...,k_hyp) axes.  With n_candidates > 1 the solver returns leading
+      (...,k_hyp,n_candidates) axes (multi-root minimal solvers like P3P);
+      all candidates join the hypothesis axis and argmax selects across them.
     residual_fn: (model, data...) -> (...,N) residuals; ``model`` carries
       either (...,k_hyp) or (...) leading axes and data (...,N,·) — the
       function broadcasts the hypothesis axis itself.
     data: tuple of (...,N,·) tensors; mask (...,N) valid correspondences.
+    inlier_threshold: a float, or a tensor of the leading shape (...) — one
+      threshold per batch entry (e.g. per-query focal lengths).
 
     Returns (best_model, inlier_mask (...,N), best_count (...)).
     """
@@ -58,8 +62,15 @@ def ransac(gumbel: torch.Tensor, solver: Callable, residual_fn: Callable,
         return g.reshape(*lead, k_hyp, sample_size, d.shape[-1])
 
     models = solver(*(gather(d) for d in data))
+    if n_candidates > 1:
+        nl = idx.ndim - 1                                         # leading axes + k_hyp
+        models = tuple(x.reshape(*x.shape[:nl - 1], k_hyp * n_candidates, *x.shape[nl + 1:])
+                       for x in models)
+    thr_k = thr_n = inlier_threshold
+    if isinstance(inlier_threshold, torch.Tensor):
+        thr_k, thr_n = inlier_threshold[..., None, None], inlier_threshold[..., None]
     r = residual_fn(models, *(d[..., None, :, :] for d in data))  # (...,k,N)
-    inl = (r < inlier_threshold) & mask[..., None, :]
+    inl = (r < thr_k) & mask[..., None, :]
     counts = torch.sum(inl.to(torch.int32), dim=-1)              # (...,k)
     best = torch.argmax(counts, dim=-1)                           # first max
 
@@ -69,6 +80,6 @@ def ransac(gumbel: torch.Tensor, solver: Callable, residual_fn: Callable,
 
     best_model = tuple(pick(x) for x in models)
     r = residual_fn(best_model, *data)
-    inliers = (r < inlier_threshold) & mask
+    inliers = (r < thr_n) & mask
     best_count = torch.take_along_dim(counts, best[..., None], dim=-1)[..., 0]
     return best_model, inliers, best_count

@@ -1,8 +1,17 @@
 """Numpy-only scenes shared by the port's tests and ``chip_smoke.py``.
 
-- the textured room of ``examples/room.py``: rendered frames, and a scene
-  with one landmark per keyframe keypoint, placed where the keypoint's ray
-  leaves the room box at the true pose;
+- the textured room of ``examples/room.py``: rendered frames (serially or
+  in worker processes), and a scene with one landmark per keyframe
+  keypoint, placed where the keypoint's ray leaves the room box at the
+  true pose;
+- the same room with one landmark per surface point (``merged_room_scene``):
+  observations whose ray hits fall in one ~1.5 cm cell share a landmark, so
+  ``build_localization_map`` mean-pools their descriptors — what an SfM
+  track does, and what the streaming path's Lowe ratio test needs (near-
+  identical landmark duplicates would make it reject the true matches);
+- distractor rooms (``combine_scenes``): scenes of rooms rendered with other
+  textures, translated elsewhere in the world frame, joined into one map
+  like the rooms of one building;
 - the synthetic map and query of ``bench.py``'s gather-path tripwire.
 """
 from __future__ import annotations
@@ -16,6 +25,25 @@ def render(tex, poses, width: int, height: int, focal: float) -> np.ndarray:
 
     return np.stack([room.render_room(tex, R, eye, width, height, focal)
                      for R, _t, eye in poses])
+
+
+def _render_one(args):
+    from examples import room
+
+    seed, R, eye, width, height, focal = args
+    return room.render_room(room.RoomTexture(seed=seed), R, eye, width, height, focal)
+
+
+def render_parallel(seed: int, poses, width: int, height: int, focal: float,
+                    workers: int) -> np.ndarray:
+    """``render`` of ``RoomTexture(seed)`` in ``workers`` spawned processes
+    (numpy only; the pool is shut down before returning)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    tasks = [(seed, R, eye, width, height, focal) for R, _t, eye in poses]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return np.stack(list(ex.map(_render_one, tasks)))
 
 
 def raycast_room(R: np.ndarray, eye: np.ndarray, uv: np.ndarray, intr: np.ndarray,
@@ -51,6 +79,50 @@ def room_scene(poses, uv: np.ndarray, mask: np.ndarray, intr: np.ndarray, box: n
         "cam_alive": np.ones(C, bool),
     }
     return scene, obs_feat
+
+
+def merged_room_scene(poses, uv: np.ndarray, mask: np.ndarray, intr: np.ndarray,
+                      box: np.ndarray, cell: float = 0.015):
+    """Scene columns with one landmark per surface cell: each valid keyframe
+    keypoint's ray hit on the room box is quantized to a ``cell``-metre grid,
+    observations in one cell share its landmark, placed at the mean of
+    their hits.  Returns (scene columns, obs_feat)."""
+    scene, obs_feat = room_scene(poses, uv, mask, intr, box)
+    X = scene["X"].astype(np.float64)
+    _, obs_pt = np.unique(np.floor(X / cell).astype(np.int64), axis=0, return_inverse=True)
+    obs_pt = obs_pt.reshape(-1)
+    P = int(obs_pt.max()) + 1
+    Xm = np.zeros((P, 3))
+    np.add.at(Xm, obs_pt, X)
+    Xm /= np.bincount(obs_pt, minlength=P)[:, None]
+    scene.update(obs_pt=obs_pt.astype(np.int32), X=Xm.astype(np.float32),
+                 X_alive=np.ones(P, bool))
+    return scene, obs_feat
+
+
+def combine_scenes(parts):
+    """Join scenes [(scene columns, obs_feat, offset (3,)), ...] into one
+    world frame: part i is translated by its offset (landmarks and camera
+    centers), its cameras and landmarks renumbered after the earlier
+    parts'.  Keyframe features are concatenated by the caller in the same
+    order.  Returns (scene columns, obs_feat)."""
+    out = {k: [] for k in ("obs_cam", "obs_pt", "obs_alive", "X", "X_alive",
+                           "cam_R", "cam_t", "cam_alive")}
+    feats, n_cam, n_pt = [], 0, 0
+    for scene, obs_feat, offset in parts:
+        off = np.asarray(offset, np.float32)
+        out["obs_cam"].append(scene["obs_cam"] + n_cam)
+        out["obs_pt"].append(scene["obs_pt"] + n_pt)
+        out["X"].append(scene["X"] + off)
+        # center c' = c + off  =>  t' = -R c' = t - R off
+        out["cam_t"].append(scene["cam_t"] - scene["cam_R"] @ off)
+        for k in ("obs_alive", "X_alive", "cam_R", "cam_alive"):
+            out[k].append(scene[k])
+        feats.append(obs_feat)
+        n_cam += len(scene["cam_R"])
+        n_pt += len(scene["X"])
+    cols = {k: np.concatenate(v).astype(v[0].dtype) for k, v in out.items()}
+    return cols, np.concatenate(feats)
 
 
 def tripwire_case(seed: int = 42, P: int = 8192, C: int = 64, Kc: int = 128,

@@ -39,13 +39,54 @@ def ref_levels(images):
     return np.asarray(lv), np.asarray(jf.hessian_response(lv, cfg))
 
 
+def _magnitudes(L0):
+    """JAX's and the port's Scharr gradient magnitudes of the same L0, (B,N)."""
+    jx, jy = jf.scharr_roll(jnp.asarray(L0))
+    tx, ty = tf.scharr_roll(T(L0))
+    return (np.asarray(jnp.sqrt(jx * jx + jy * jy)).reshape(len(L0), -1),
+            torch.sqrt(tx * tx + ty * ty).numpy().reshape(len(L0), -1))
+
+
+def test_scharr_magnitude_matches_reference(images):
+    """The contrast's Scharr magnitudes on the same L0: atol 1e-8 (values
+    up to ~0.12; the stencil sums in the same order, so only the last bit
+    of the sqrt argument can differ)."""
+    L0 = np.asarray(jf.gaussian_blur(jnp.asarray(images), 2.0))
+    jmag, tmag = _magnitudes(L0)
+    np.testing.assert_allclose(tmag, jmag, rtol=0, atol=1e-8)
+
+
+def test_percentile_linear_matches_numpy(images):
+    """The port's percentile on the SAME magnitudes against numpy's linear
+    method: rtol 1e-6 (exact selection; only the f32 interpolation rounds)."""
+    L0 = np.asarray(jf.gaussian_blur(jnp.asarray(images), 2.0))
+    jmag, _ = _magnitudes(L0)
+    for q in (70.0, 50.0, 99.9):
+        out = tf._percentile_linear(T(jmag), q).numpy()
+        np.testing.assert_allclose(out, np.percentile(jmag, q, axis=1, method="linear"),
+                                   rtol=1e-6)
+
+
 def test_blur_and_contrast_match_reference(images):
     """Zero-padded separable blur: atol 1e-6 (conv summation order differs
-    from XLA's by at most 2 ulp); contrast percentile rtol 1e-5."""
+    from XLA's by at most 2 ulp).  contrast_k2 end to end within one
+    order-statistic gap: k interpolates between two neighbouring order
+    statistics of the 12,288 magnitudes, so a last-bit difference in a
+    magnitude, or a selection a place or two over (seen once under a
+    6-worker run: k^2 0.00057425 against 0.0005743, i.e. k two places
+    down), moves k by about one gap.  The gap is the largest between
+    neighbouring order statistics within 4 places of the 70th-percentile
+    position (~1e-6..1e-5 here); k^2 may move by (k_port + k_ref) times it."""
     L0 = np.asarray(jf.gaussian_blur(jnp.asarray(images), 2.0))
     np.testing.assert_allclose(tf.gaussian_blur(T(images), 2.0).numpy(), L0, atol=1e-6)
-    np.testing.assert_allclose(tf.contrast_k2(T(L0)).numpy(),
-                               np.asarray(jf.contrast_k2(jnp.asarray(L0))), rtol=1e-5)
+    jmag, _ = _magnitudes(L0)
+    srt = np.sort(jmag, axis=1)
+    lo = int(np.floor(0.7 * (jmag.shape[1] - 1)))
+    gap = np.max(np.diff(srt[:, lo - 4:lo + 6], axis=1), axis=1)     # (B,)
+    k2_ref = np.asarray(jf.contrast_k2(jnp.asarray(L0)))[:, 0, 0]
+    k2_out = tf.contrast_k2(T(L0)).numpy()[:, 0, 0]
+    bound = (np.sqrt(k2_ref) + np.sqrt(k2_out)) * gap
+    assert (np.abs(k2_out - k2_ref) <= bound).all(), (k2_out, k2_ref, bound)
     np.testing.assert_array_equal(tf.fed_tau_schedule(5.0), jf.fed_tau_schedule(5.0))
     np.testing.assert_array_equal(tf.gaussian_kernel1d(2.0), jf.gaussian_kernel1d(2.0))
 

@@ -1,4 +1,4 @@
-"""sfmx_torch CUDA kernels K1-K3 against their plain PyTorch versions.
+"""sfmx_torch CUDA kernels K1-K4 against their plain PyTorch versions.
 
 These need a card and skip without one.  The file imports neither jax nor
 sfmx, so it also runs where only the port is installed:
@@ -12,6 +12,7 @@ import torch
 from sfmx_torch.kernels import _build
 from sfmx_torch.kernels import describe as dsc
 from sfmx_torch.kernels import features as F
+from sfmx_torch.kernels import match as mt
 from sfmx_torch.kernels import scale_space as ss
 
 torch.set_num_threads(2)
@@ -102,3 +103,77 @@ def test_wrappers_reject_bad_inputs(cuda):
         ss.diffuse_segment(L.transpose(1, 2)[:, :8], torch.ones(1, device=cuda), (0.1,))
     with pytest.raises(ValueError):
         ss.response_levels(torch.zeros(1, 2, 16, 16, device=cuda), (2, 3, 4))
+
+
+def _unit_rows(g, n, d=128):
+    x = torch.randn((n, d), generator=g)
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def _check_top2(out, ref, atol=1e-5):
+    """s1/s2 within atol (summation order differs); i1 equal wherever the
+    best beats every other column by more than atol.  Returns the number of
+    near-tie rows whose index differs."""
+    (s1, i1, s2), (r1, j1, r2) = [tuple(x.cpu() for x in t) for t in (out, ref)]
+    assert float((s1 - r1).abs().max()) <= atol
+    assert float((s2 - r2).abs().max()) <= atol
+    clear = (r1 - r2) > atol
+    assert bool((i1[clear] == j1[clear]).all())
+    return int((i1[~clear] != j1[~clear]).sum())
+
+
+@pytest.mark.parametrize("Ka,Kb,D", [(256, 2048, 128), (777, 4096, 128), (512, 6144, 64)])
+def test_k4_match_top2_matches_plain(cuda, Ka, Kb, D):
+    """Random unit rows with planted exact duplicates (ties go to the lower
+    index, s2 == s1), zero rows and a query row equal to a landmark: s1/s2
+    atol 1e-5, i1 equal outside near-ties; one launch counted."""
+    g = torch.Generator().manual_seed(Ka + Kb)
+    a, b = _unit_rows(g, Ka, D), _unit_rows(g, Kb, D)
+    b[Kb - 70] = b[33]
+    b[Kb - 1] = b[1500 % Kb]
+    a[5], a[6] = b[33], b[Kb - 1]
+    b[100:164] = 0.0
+    a[7] = 0.0
+    before = _build.LAUNCHES.get("match_top2")
+    out = mt.match_top2(a.to(cuda), b.to(cuda), tile_a=1, tile_b=64)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("match_top2") == before + 1
+    ref = mt.match_top2_plain(a.to(cuda), b.to(cuda), max_elems=Ka * 1000)
+    _check_top2(out, ref)
+    assert int(out[1][5]) == 33 and float(out[0][5]) == float(out[2][5])
+    assert int(out[1][6]) == 1500 % Kb
+    _check_top2(out, mt.match_top2_plain(a, b))
+
+
+def test_k4_match_float_streaming_on_card_matches_cpu(cuda):
+    """The streaming matcher with masks and padding (Kb not a tile
+    multiple): the same accept set and indices on the card and on the CPU
+    except near-ties."""
+    g = torch.Generator().manual_seed(9)
+    base = _unit_rows(g, 3000)
+    a = base[:1500] + 0.05 * torch.randn((1500, 128), generator=g)
+    a = a / torch.linalg.vector_norm(a, dim=1, keepdim=True)
+    ma = torch.rand(1500, generator=g) > 0.1
+    mb = torch.rand(3000, generator=g) > 0.05
+    cpu = mt.match_float_streaming(a, base, ma, mb, ratio=0.85)
+    gpu = mt.match_float_streaming(a.to(cuda), base.to(cuda), ma.to(cuda), mb.to(cuda),
+                                   ratio=0.85)
+    assert float((gpu.score.cpu() - cpu.score).abs().max()) <= 1e-5
+    agree = (gpu.valid.cpu() == cpu.valid).float().mean()
+    assert agree > 0.995 and int(cpu.valid.sum()) > 1000
+    both = gpu.valid.cpu() & cpu.valid
+    assert bool((gpu.idx.cpu()[both] == cpu.idx[both]).all())
+
+
+def test_k4_rejects_bad_inputs(cuda):
+    """D > 128, a pool that is not a multiple of the kernel's 64-row tile,
+    mixed devices and integer inputs raise; nothing falls back."""
+    a = torch.zeros(256, 128, device=cuda)
+    with pytest.raises(ValueError):
+        mt.match_top2(torch.zeros(256, 160, device=cuda), torch.zeros(2048, 160, device=cuda))
+    with pytest.raises(ValueError):
+        mt.match_top2(a, torch.zeros(96, 128, device=cuda), tile_b=32)
+    with pytest.raises(ValueError):
+        mt.match_top2(a, torch.zeros(2048, 128))
+    with pytest.raises(ValueError):
+        mt.match_top2(a.int(), torch.zeros(2048, 128, device=cuda, dtype=torch.int32))

@@ -14,6 +14,7 @@ from sfmx.localize import retrieve as jret
 from sfmx.localize.localize import LocalizationMap as JMap
 from sfmx.localize.localize import build_localization_map as jbuild
 from sfmx.localize.localize import localize_batch as jlocalize_batch
+from sfmx.localize.localize import localize_batch_streaming as jlocalize_streaming
 from sfmx.localize.localize import localize_query as jlocalize_query
 from sfmx.mapstore import lmap_store as jstore
 from sfmx.mapstore.scene import new_scene
@@ -23,7 +24,9 @@ from sfmx_torch.cli import config as tcfg
 from sfmx_torch.cli.main import localize_images
 from sfmx_torch.localize import retrieve as tret
 from sfmx_torch.localize.localize import LocalizationMap, build_localization_map
-from sfmx_torch.localize.localize import localize_batch, localize_query, use_streaming
+from sfmx_torch.localize.localize import (localize_batch, localize_batch_streaming,
+                                          localize_query, localize_query_streaming,
+                                          use_streaming)
 from sfmx_torch.mapstore import lmap_store as tstore
 from sfmx_torch.solvers import pnp as tpnp
 from sfmx_torch.solvers import ransac as transac
@@ -144,8 +147,12 @@ def _tripwire_like_map(rng, P=2048, C=16, Kc=128, D=128, vlad=True):
     return cols
 
 
-def _queries(rng, cols, B, K):
+def _queries(rng, cols, B, K, focals=None):
+    """B queries of K keypoints: landmarks of two keyframes each, seen from
+    a shifted camera of focal length ``focals[b]`` (560 by default), with 40
+    outlier pixels and 10 masked slots."""
     X, lm, kf_lm = cols["X"], cols["lm_desc"], cols["kf_lm"]
+    focals = [560.0] * B if focals is None else focals
     q_desc = np.zeros((B, K, lm.shape[1]), np.float32)
     q_uv = np.zeros((B, K, 2), np.float32)
     for b in range(B):
@@ -153,7 +160,8 @@ def _queries(rng, cols, B, K):
         q = lm[sel] + 0.02 * rng.standard_normal((K, lm.shape[1]))
         q_desc[b] = q / np.linalg.norm(q, axis=1, keepdims=True)
         Xc = X[sel] + np.array([0.1 * b, 0.05, 0.2], np.float32)
-        q_uv[b] = np.stack([560 * Xc[:, 0] / Xc[:, 2] + 320, 560 * Xc[:, 1] / Xc[:, 2] + 240], 1)
+        f = focals[b]
+        q_uv[b] = np.stack([f * Xc[:, 0] / Xc[:, 2] + 320, f * Xc[:, 1] / Xc[:, 2] + 240], 1)
         q_uv[b] += rng.normal(0, 0.5, (K, 2))
     q_uv[:, :40] = rng.uniform(0, 640, (B, 40, 2))       # outliers
     q_mask = np.ones((B, K), bool)
@@ -295,9 +303,13 @@ def test_config_defaults_match_reference():
             dataclasses.asdict(getattr(jcfg.load_config(None, ov), sub)), sub
 
 
-def test_streaming_policy_raises_instead_of_gather():
+def test_streaming_policy_raises_instead_of_gather(monkeypatch):
     """use_streaming matches the reference's policy, and where it says yes
-    the port raises instead of quietly taking the gather path."""
+    ``localize_images`` takes the streaming path (kernel K4's entry) and
+    never quietly falls back to the gather path: the gather entry is
+    replaced by one that raises.  (The name dates from before K4 was
+    ported, when the streaming branch raised; it is kept so the test's
+    history stays one line.)"""
     cols = _tripwire_like_map(np.random.default_rng(1), P=512, C=4, Kc=64, vlad=False)
     tmap = LocalizationMap.from_numpy(cols, "cpu")
     jmap = JMap(**{k: jnp.asarray(v) for k, v in cols.items()})
@@ -308,9 +320,23 @@ def test_streaming_policy_raises_instead_of_gather():
         lc = tcfg.LocalizeConfig(streaming=mode, streaming_min_landmarks=thr)
         jlc = jcfg.LocalizeConfig(streaming=mode, streaming_min_landmarks=thr)
         assert use_streaming(lc, tmap, binary) == juse(jlc, jmap, binary)
-    cfg = tcfg.load_config(None, ["localize.streaming_min_landmarks=256"])
-    with pytest.raises(NotImplementedError, match="streaming path needs K4"):
-        localize_images(np.zeros((1, 64, 64), np.float32), INTR, tmap, cfg)
+    import sfmx_torch.cli.main as tmain
+
+    calls, orig = [], tmain.localize_batch_streaming
+
+    def streaming(*a, **kw):
+        calls.append(kw["ratio"])
+        return orig(*a, **kw)
+
+    def gather(*a, **kw):
+        raise AssertionError("gather path taken where use_streaming says yes")
+
+    monkeypatch.setattr(tmain, "localize_batch_streaming", streaming)
+    monkeypatch.setattr(tmain, "localize_batch", gather)
+    cfg = tcfg.load_config(None, ["localize.streaming_min_landmarks=256",
+                                  "localize.k_hypotheses=64", "features.max_keypoints=64"])
+    out = localize_images(np.zeros((1, 64, 64), np.float32), INTR, tmap, cfg)
+    assert calls == [cfg.match.ratio] and len(out) == 1
 
 
 def test_tripwire_gates_on_cpu():
@@ -325,3 +351,141 @@ def test_tripwire_gates_on_cpu():
     assert int(res.n_inliers) >= K // 2 and float(res.confidence) > 0.5
     assert float(torch.linalg.vector_norm(res.t)) < 0.05
     assert float(torch.linalg.matrix_norm(res.R - torch.eye(3))) < 0.02
+
+
+def _gumbel(key, B, kh, K):
+    """The reference's per-query RANSAC noise of a batch call with ``key``."""
+    return np.stack([np.asarray(jax.random.gumbel(k_, (kh, K)))
+                     for k_ in jax.random.split(key, B)])
+
+
+def _assert_same_poses(out, ref, atol=1e-4):
+    np.testing.assert_array_equal(out.n_inliers.numpy(), np.asarray(ref.n_inliers))
+    np.testing.assert_allclose(out.R.numpy(), np.asarray(ref.R), atol=atol)
+    np.testing.assert_allclose(out.t.numpy(), np.asarray(ref.t), atol=atol)
+    np.testing.assert_allclose(out.center.numpy(), np.asarray(ref.center), atol=atol)
+    np.testing.assert_allclose(out.confidence.numpy(), np.asarray(ref.confidence), atol=1e-6)
+
+
+def test_per_query_focal_lengths_in_one_batch():
+    """Two queries of one batch with different focal lengths (560 and 700):
+    the gather path with (B,7) intrinsics against the reference's
+    per-query localize_query (as its server vmaps it), noise injected —
+    n_inliers equal, pose atol 1e-4; each inlier threshold follows its own
+    focal, so shared intrinsics give a different answer."""
+    rng = np.random.default_rng(5)
+    cols = _tripwire_like_map(rng)
+    B, K, kh = 2, 256, 256
+    q_desc, q_uv, q_mask = _queries(rng, cols, B, K, focals=[560.0, 700.0])
+    intr_b = np.stack([INTR, INTR]).copy()
+    intr_b[1, :2] = 700.0
+    key = jax.random.PRNGKey(8)
+    gum = _gumbel(key, B, kh, K)
+    jmap = JMap(**{k: jnp.asarray(v) for k, v in cols.items()})
+    refs = [jlocalize_query(jmap, jnp.asarray(q_desc[b]), jnp.asarray(q_uv[b]),
+                            jnp.asarray(q_mask[b]), jnp.asarray(intr_b[b]), k_,
+                            k_hypotheses=kh, m_cap=512, top_k_kf=4)
+            for b, k_ in enumerate(jax.random.split(key, B))]
+    ref = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *refs)
+    tmap = LocalizationMap.from_numpy(cols, "cpu")
+    out = localize_batch(tmap, T(q_desc), T(q_uv), T(q_mask), T(intr_b), gumbel=T(gum),
+                         k_hypotheses=kh, m_cap=512, top_k_kf=4)
+    _assert_same_poses(out, ref)
+    assert (out.n_inliers.numpy() > 100).all()
+    shared = localize_batch(tmap, T(q_desc), T(q_uv), T(q_mask), T(INTR), gumbel=T(gum),
+                            k_hypotheses=kh, m_cap=512, top_k_kf=4)
+    assert int(shared.n_inliers[1]) < int(out.n_inliers[1])
+    with pytest.raises(ValueError):
+        localize_batch(tmap, T(q_desc), T(q_uv), T(q_mask), T(intr_b[:, :6]), gumbel=T(gum),
+                       k_hypotheses=kh)
+
+
+@pytest.mark.parametrize("case", ["shared", "prior", "per_query_intr"])
+def test_localize_batch_streaming_matches_reference(case):
+    """The streaming path (whole pool, plain K4 here, the Pallas kernel in
+    interpret mode there) with the reference's RANSAC noise injected:
+    n_inliers equal, pose atol 1e-4; also with a beacon prior that zeroes
+    the landmarks outside its radius, and with (B,7) intrinsics whose
+    focal lengths differ within the batch."""
+    rng = np.random.default_rng(11)
+    cols = _tripwire_like_map(rng, vlad=False)
+    B, K, kh = 3, 256, 256
+    focals = [560.0, 640.0, 560.0] if case == "per_query_intr" else None
+    q_desc, q_uv, q_mask = _queries(rng, cols, B, K, focals=focals)
+    intr = INTR
+    if case == "per_query_intr":
+        intr = np.stack([INTR] * B).copy()
+        intr[1, :2] = 640.0
+    kw = dict(k_hypotheses=kh, ratio=0.8)
+    if case == "prior":
+        kw.update(prior_center=np.array([0.0, 0.0, 5.0], np.float32), prior_radius=3.0)
+    key = jax.random.PRNGKey(12)
+    jmap = JMap(**{k: jnp.asarray(v) for k, v in cols.items()})
+    ref = jlocalize_streaming(jmap, jnp.asarray(q_desc), jnp.asarray(q_uv), jnp.asarray(q_mask),
+                              jnp.asarray(intr), key, interpret=True,
+                              **{k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+                                 for k, v in kw.items()})
+    out = localize_batch_streaming(
+        LocalizationMap.from_numpy(cols, "cpu"), T(q_desc), T(q_uv), T(q_mask), T(intr),
+        gumbel=T(_gumbel(key, B, kh, K)),
+        **{k: (T(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()})
+    _assert_same_poses(out, ref)
+    assert (out.n_inliers.numpy() > 50).all()
+
+
+def test_localize_query_streaming_matches_batch_entry():
+    """The single-query entry equals row 0 of the batch entry (same noise)."""
+    rng = np.random.default_rng(2)
+    cols = _tripwire_like_map(rng, P=1024, C=8, vlad=False)
+    q_desc, q_uv, q_mask = _queries(rng, cols, 1, 256)
+    g = transac.gumbel_noise((1, 128, 256), device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    tmap = LocalizationMap.from_numpy(cols, "cpu")
+    one = localize_query_streaming(tmap, T(q_desc[0]), T(q_uv[0]), T(q_mask[0]), T(INTR),
+                                   gumbel=g[0], k_hypotheses=128)
+    batch = localize_batch_streaming(tmap, T(q_desc), T(q_uv), T(q_mask), T(INTR), gumbel=g,
+                                     k_hypotheses=128)
+    assert int(one.n_inliers) == int(batch.n_inliers[0]) > 50
+    torch.testing.assert_close(one.R, batch.R[0])
+
+
+def test_binary_localize_batch_matches_reference(rng):
+    """Hamming 2D-3D matching on packed bits (the query's bits are its
+    landmarks' with ~8% of the bits flipped), retrieval on float VLAD,
+    noise injected: n_inliers equal, pose atol 1e-4; the map's bits come
+    from build_localization_map(feat_bits=...) on both sides."""
+    cols = _tripwire_like_map(rng)
+    P = len(cols["X"])
+    bits = rng.integers(0, 2 ** 32, (P, 16), dtype=np.uint64).astype(np.uint32)
+    cols["lm_bits"] = bits
+    B, K, kh = 2, 256, 256
+    q_desc, q_uv, q_mask = _queries(rng, cols, B, K)
+    q_bits = np.zeros((B, K, 16), np.uint32)
+    for b in range(B):
+        sel = cols["kf_lm"][2 * b:2 * b + 2].reshape(-1)[:K]
+        flips = (rng.random((K, 16, 32)) < 0.08).astype(np.uint32)
+        q_bits[b] = bits[sel] ^ np.sum(flips << np.arange(32, dtype=np.uint32), axis=-1,
+                                        dtype=np.uint32)
+    key = jax.random.PRNGKey(21)
+    jmap = JMap(**{k: jnp.asarray(v) for k, v in cols.items()})
+    kw = dict(k_hypotheses=kh, m_cap=512, top_k_kf=4, ham_thresh=120.0)
+    ref = jlocalize_batch(jmap, jnp.asarray(q_desc), jnp.asarray(q_uv), jnp.asarray(q_mask),
+                          jnp.asarray(INTR), key, q_bits=jnp.asarray(q_bits), **kw)
+    tmap = LocalizationMap.from_numpy(cols, "cpu")
+    assert tmap.lm_bits.dtype == torch.int32
+    out = localize_batch(tmap, T(q_desc), T(q_uv), T(q_mask), T(INTR),
+                         gumbel=T(_gumbel(key, B, kh, K)), q_bits=T(q_bits.view(np.int32)), **kw)
+    _assert_same_poses(out, ref)
+    assert (out.n_inliers.numpy() > 100).all()
+
+
+def test_build_localization_map_with_bits_matches_reference(rng):
+    """feat_bits -> lm_bits by majority vote: the same words as the
+    reference's map, and the store keeps them as uint32."""
+    scene, desc, obs_feat = _jax_scene(rng)
+    bits = rng.integers(0, 2 ** 32, desc.shape[:2] + (16,), dtype=np.uint64).astype(np.uint32)
+    ref = jbuild(scene, desc, obs_feat, kf_lm_cap=16, use_vlad=False, feat_bits=bits)
+    cols = {f.name: np.asarray(getattr(scene, f.name)) for f in dataclasses.fields(scene)}
+    out = build_localization_map(cols, desc, obs_feat, "cpu", kf_lm_cap=16, use_vlad=False,
+                                 feat_bits=bits.view(np.int32))
+    np.testing.assert_array_equal(out.to_numpy()["lm_bits"], np.asarray(ref.lm_bits))
