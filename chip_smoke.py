@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the sfmx_torch query-localization and map-scale serving paths once
-on one CUDA card.
+"""Drive the sfmx_torch query-localization, map-scale serving and map-build
+front-end paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
-  2. build      — compiles the CUDA kernels K1-K4 from sfmx_torch/csrc, one
-                  nvcc per source, all started together
+  2. build      — compiles the CUDA kernels K1-K5, K9 and K10 from
+                  sfmx_torch/csrc, one nvcc per source, and native/tracks.cpp
+                  with g++, all started together
   3. kernels    — K1-K3 against their plain PyTorch versions at the gather
                   path's shapes (B=16, 480x640 and 240x320, L=5, K=1024/512),
                   max abs error beside the stated tolerance, CUDA-event times;
@@ -48,12 +49,44 @@ Phases (each asserts; any failure exits non-zero):
                   of both paths under torch.profiler, the device's busy
                   share of the wall time, the top device ops; the tables go
                   to chiprun_out/profile_*.txt
- 13. counters   — launches of the gather path's run against the count it
-                  implies, and of the serving run (K1-K4 all > 0)
+ 13. front end  — renders a 256-frame VGA walk across the room and back and
+                  runs ``build_front_end`` (extract, pairs, match, verify,
+                  tracks; ``PipelineConfig()`` defaults: 1024 keypoints,
+                  ratio 0.85, cross-check, 256 E-RANSAC hypotheses, 16
+                  inliers per kept pair) three times, launch counts set to 0
+                  before each: its first 96 frames exhaustively (4,560 pairs
+                  on K5), all 256 by retrieval pairs (window 8, k 8) in band
+                  tiles (K9, leftovers K5), and the 96 frames' window pairs
+                  with binary descriptors (plain Hamming).  Stage walls,
+                  pairs/s, tracks.  Gates: the plain matcher never runs on
+                  the card; >= 95 % of verified matches join keypoints whose
+                  raycast surface points lie within max(3 cm, the keypoint's
+                  scale at its depth); >= 85 % of track observations that
+                  close to their track's median point, and the track table
+                  equal to the numpy union-find's; every adjacent-frame pair
+                  keeps >= 16 inliers; a loop closure across the two passes
+                  survives verification
+ 14. pair kernels — K5 and K9 against the plain matcher on the card at the
+                  4,560 exhaustive pairs and at the band list (score within
+                  1e-5, valid and accepted idx equal outside near-ties), K9
+                  equal to K5 in every field; K10 (K5's raw mode) on 512
+                  pairs as its own path, against its plain version; times
+ 15. front crosscheck — 16 adjacent pairs: the card's match and verify
+                  stages against the plain CPU path with the same Gumbel
+                  noise (valid equal outside near-ties; per pair, inlier
+                  counts within 1 %, inlier masks equal but for matches near
+                  the threshold and that slack); with --profile, device ms
+                  and busy share per stage
+ 16. counters   — launches of the gather path's run against the count it
+                  implies, of the serving run (K1-K4 all > 0), and of each
+                  front-end build (K1-K3 per extraction call; K5 and K9 two
+                  per wrapper call)
 The last two lines are the kernel JSON and the device JSON.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -72,7 +105,14 @@ N_SERVE, SERVE_BATCH, SERVE_WINDOW_MS = 64, 32, 5.0
 N_BURSTS = 8                   # serving bursts, one after another, on one service
 FOCAL_OWN = 600.0              # the two requests that carry their own intrinsics
 RENDER_WORKERS = 8
+N_BUILD, N_BAND = 96, 256      # exhaustive build (4,560 pairs); the band build's loop walk
+N_K10_PAIRS, N_XCHECK_PAIRS = 512, 16
+XCHECK_SLACK = 0.01            # card vs CPU verify: 1% of a pair's inliers (at least 2)
+TRUTH_M, TRUTH_SHARE = 0.03, 0.95   # true match: surface points within 3 cm (or sigma)
+TRACK_OBS_SHARE = 0.85         # true track observations (the reference's builder: 0.88-0.95)
+NEAR_TIE = 1e-5                # score gap under which summation order may flip a winner
 
+SERVE_KERNELS = ("diffuse_segment", "response_levels", "describe_upright", "match_top2")
 # kernel name -> (source, TPU kernel it replaces, stated tolerance on max abs error)
 KERNELS = {
     "diffuse_segment": ("sfmx_torch/csrc/scale_space.cu",
@@ -83,13 +123,20 @@ KERNELS = {
                          "sfmx/kernels/pallas_describe.py:172", 1e-5),
     "match_top2": ("sfmx_torch/csrc/match_top2.cu",
                    "sfmx/kernels/pallas_match.py:100", 1e-5),
+    "match_pairs_fused": ("sfmx_torch/csrc/match_pairs.cu",
+                          "sfmx/kernels/pallas_pairs.py:253", NEAR_TIE),
+    "match_pairs_tiled": ("sfmx_torch/csrc/match_pairs.cu",
+                          "sfmx/kernels/pallas_tiles.py:214", NEAR_TIE),
+    "match_pairs_top2": ("sfmx_torch/csrc/match_pairs.cu",
+                         "sfmx/kernels/pallas_pairs.py:127", NEAR_TIE),
 }
 # Tolerances: K1 — the kernel contracts multiply-adds into FMAs and the
 # Perona-Malik steps amplify last-bit differences (levels lie in [0,1]);
 # K2 — responses peak near 1e-2, so 1e-6 is 1e-4 relative; K3 — cell means
-# of [0,1] samples, summed in another order than the plain version; K4 —
-# scores of unit vectors in [-1,1]: the bf16 products are exact in f32 and
-# only the order of the 128-term sums differs.
+# of [0,1] samples, summed in another order than the plain version; K4, K5,
+# K9, K10 — scores of unit vectors in [-1,1]: the bf16 products are exact in
+# f32 and only the order of the 128-term sums differs, so winners are
+# compared outside near-ties (a gap below NEAR_TIE).
 
 
 def log(msg: str) -> None:
@@ -146,13 +193,20 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from sfmx_torch.kernels import _build
+    from sfmx_torch.recon import _native_tracks
 
     t0 = time.perf_counter()
-    libs = ("scale_space", "describe", "match_top2")
-    with ThreadPoolExecutor(len(libs)) as ex:      # one nvcc per source, together
-        list(ex.map(_build.load, libs))
-    log(f"[build] {time.perf_counter() - t0:.2f} s "
-        f"(nvcc per library: {json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})})")
+    libs = ("scale_space", "describe", "match_top2", "match_pairs")
+    # one nvcc per source and the track builder's g++, all together, so no
+    # build lands in a measured stage
+    with ThreadPoolExecutor(len(libs) + 1) as ex:
+        futures = [ex.submit(_build.load, lib) for lib in libs]
+        futures.append(ex.submit(_native_tracks._lib))
+        for f in futures:
+            f.result()
+    log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc per library: "
+        f"{json.dumps({k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()})}; "
+        f"native/tracks.cpp with g++ beside them)")
 
 
 def phase_kernels(images, dev) -> dict:
@@ -407,7 +461,9 @@ def phase_rate(extract, localize, n_frames: int, smi: str, reps: int = 5,
 def device_ms_per_run(fn, reps: int):
     """Run fn() reps times under torch.profiler.  Returns the device time per
     run in ms (the summed durations of every kernel, copy and fill the trace
-    holds; the path runs on one stream, so they do not overlap), the device
+    holds; the path runs on one stream, so they do not overlap; fn must not
+    open a record_function range, whose device-side annotation would count
+    as well), the device
     time per run of each kernel name, and the profiler's table."""
     import torch
     from torch.autograd import DeviceType
@@ -738,6 +794,422 @@ def phase_streaming_crosscheck(lmap, state, dev):
     assert float(dc.max()) < 0.03, f"streaming card vs plain centers {float(dc.max())} m apart"
 
 
+# ---------------------------------------------------------------------------
+# Map-build front end on K5, K9 and K10
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_matcher_calls():
+    """Record the device of every call of the plain pair matcher (in each
+    module that holds a reference to it) while the block runs."""
+    from sfmx_torch.kernels import matching, pairs, tiles
+
+    calls: list[str] = []
+    orig = matching.match_pairs_float
+
+    def counted(descs, *args, **kw):
+        calls.append(descs.device.type)
+        return orig(descs, *args, **kw)
+
+    mods = (matching, pairs, tiles)
+    for m in mods:
+        m.match_pairs_float = counted
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.match_pairs_float = orig
+
+
+def run_front_end(tag: str, images, cfg, dev, feats=None):
+    """One build through ``build_front_end`` (extract, pairs, match, verify,
+    tracks), the launch counts set to 0 just before it and read just after.
+    Gates: the plain matcher never ran on the card.  Returns
+    ((feats, pairs, verified MatchResult, inlier counts, TrackTable),
+    launches, the stage records)."""
+    import io
+
+    import torch
+
+    from sfmx_torch.cli.pipeline import build_front_end
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.utils.logging import LOGGER
+
+    n = len(images) if images is not None else feats.desc.shape[0]
+    buf, old = io.StringIO(), LOGGER._stream
+    LOGGER._stream = buf
+    try:
+        with plain_matcher_calls() as plain:
+            torch.cuda.synchronize()
+            _build.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            out = build_front_end(images, INTR[None], np.zeros(n, np.int32), cfg, dev,
+                                  feats=feats, generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES.counts)
+    finally:
+        LOGGER._stream = old
+    stages = {r["stage"]: r for r in map(json.loads, buf.getvalue().splitlines())}
+    pairs = out[1]
+    m, v = stages["match"], stages["geometric_verify"]
+    log(f"[{tag}] {n} frames, {len(pairs)} pairs ({cfg.match.pair_mode}, kernel "
+        f"{'hamming' if cfg.match.binary else cfg.match.kernel}): stage wall "
+        + ", ".join(f"{k} {r['wall_s']:.3f} s" for k, r in stages.items())
+        + f"; whole {wall:.3f} s; matching {len(pairs) / m['wall_s']:.1f} pairs/s, "
+        f"verification {len(pairs) / v['wall_s']:.1f} pairs/s; {m['matches']} matches -> "
+        f"{v['inliers']} inliers, {v['pairs_kept']} pairs kept, {stages['tracks']['tracks']} "
+        f"tracks; launches {json.dumps(launches)}; plain matcher calls {plain}")
+    assert "cuda" not in plain, f"{tag}: the plain matcher ran on the card"
+    return out, launches, stages
+
+
+def truth_gates(tag: str, poses, front, min_inliers: int) -> None:
+    """The verified matches and tracks against the raycast truth: every
+    keypoint's surface point on the room box at its frame's true pose.
+
+    A keypoint is located to a fraction of its scale sigma (2-12 px at full
+    resolution), and at the room's 8-9 m one pixel spans ~1.5 cm, so two
+    views of one surface point can sit a few cm apart.  The tolerance of a
+    keypoint is therefore the larger of TRUTH_M and its footprint, sigma
+    projected to its surface point's depth.  A match is true when its two
+    surface points lie within the larger tolerance of its two keypoints; a
+    track observation is true when it lies within its own tolerance of the
+    track's median point, and a track pure when all of its observations
+    are.  Gates: true matches >= TRUTH_SHARE, true track observations >=
+    TRACK_OBS_SHARE, and the track table equal to the numpy union-find's
+    on the same matches.  The conflict-aware union-find chains tracks
+    through dense match graphs (the reference's builder gives the same
+    table), so one stray observation makes a long track impure: the share
+    of pure tracks is printed, with the shares within TRUTH_M alone."""
+    from examples import room
+    from sfmx_torch.recon.tracks import build_tracks
+    from tests.smoke_scenes import raycast_room
+
+    feats, pairs, res, cnt, tt = front
+    uv = feats.kp.uv.cpu().numpy().astype(np.float64)
+    X = np.stack([raycast_room(R, eye, uv[c], INTR, room.ROOM)
+                  for c, (R, _t, eye) in enumerate(poses)])            # (C,K,3)
+    eyes = np.stack([eye for _R, _t, eye in poses])
+    foot = feats.kp.sigma.cpu().numpy() * np.linalg.norm(X - eyes[:, None], axis=-1) / FOCAL
+    tol = np.maximum(TRUTH_M, foot)                                    # (C,K)
+    idx, valid = res.idx.cpu().numpy(), res.valid.cpu().numpy()
+    p, r = np.nonzero(valid)
+    a, b, j = pairs[p, 0], pairs[p, 1], idx[p, r]
+    dist = np.linalg.norm(X[a, r] - X[b, j], axis=1)
+    match_ok = float((dist < np.maximum(tol[a, r], tol[b, j])).mean())
+    Xo, to = X[tt.obs_cam, tt.obs_feat], tol[tt.obs_cam, tt.obs_feat]
+    starts, ends = tt.track_slices()
+    dev_m = np.empty(len(Xo))
+    for s, e in zip(starts, ends):
+        dev_m[s:e] = np.linalg.norm(Xo[s:e] - np.median(Xo[s:e], axis=0), axis=1)
+    obs_ok = dev_m < to
+    n_t = max(tt.n_tracks, 1)
+    pure = np.logical_and.reduceat(obs_ok, starts).sum() if tt.n_tracks else 0
+    pure_cm = np.logical_and.reduceat(dev_m < TRUTH_M, starts).sum() if tt.n_tracks else 0
+    adj = pairs[:, 1] == pairs[:, 0] + 1
+    cnt = cnt.cpu().numpy()
+    log(f"[{tag}] truth: {match_ok:.4f} of {len(dist)} verified matches true (gate >= "
+        f"{TRUTH_SHARE}; {float((dist < TRUTH_M).mean()):.4f} within {TRUTH_M * 100:.0f} cm, "
+        f"{float((dist > 0.3).mean()):.4f} over 30 cm); {float(obs_ok.mean()):.4f} of "
+        f"{len(obs_ok)} track observations true (gate >= {TRACK_OBS_SHARE}); {pure}/{tt.n_tracks} "
+        f"tracks pure = {pure / n_t:.4f} ({pure_cm / n_t:.4f} within {TRUTH_M * 100:.0f} cm); "
+        f"mean track length {np.mean(ends - starts):.2f}; adjacent-frame pairs: min "
+        f"{int(cnt[adj].min())} inliers (gate >= {min_inliers}) over {int(adj.sum())}")
+    assert len(dist) > 0 and match_ok >= TRUTH_SHARE, f"{tag}: {match_ok} of matches true"
+    assert tt.n_tracks > 0 and obs_ok.mean() >= TRACK_OBS_SHARE, \
+        f"{tag}: {obs_ok.mean()} of track observations true"
+    t0 = time.perf_counter()
+    oracle = build_tracks(pairs, idx, valid, len(poses), idx.shape[1], impl="numpy")
+    same = all(np.array_equal(x, y) for x, y in zip(oracle[:3], tt[:3]))
+    log(f"[{tag}] tracks equal to the numpy union-find's on the same matches: {same} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    assert same and oracle.n_tracks == tt.n_tracks, f"{tag}: native and numpy tracks differ"
+    assert int(cnt[adj].min()) >= min_inliers, f"{tag}: an adjacent pair lost its inliers"
+
+
+def check_matcher(tag: str, got, ref, near, tol: float = NEAR_TIE) -> float:
+    """Kernel against plain on the same pairs: score within tol everywhere,
+    valid equal and idx equal on accepted rows outside near-ties."""
+    err = float((got.score - ref.score).abs().max())
+    clear = ~near
+    bad_v = int((got.valid != ref.valid)[clear].sum())
+    bad_i = int((got.idx != ref.idx)[clear & ref.valid].sum())
+    log(f"[{tag}] max_abs_err {err:.3e} (tol {tol:.0e}); valid mismatches {bad_v}, idx "
+        f"mismatches {bad_i} outside near-ties; {int(near.sum())} near-tie rows of "
+        f"{near.numel()}; {int(ref.valid.sum())} accepted by the plain version")
+    assert err <= tol and bad_v == 0 and bad_i == 0, f"{tag} disagrees with its plain version"
+    return err
+
+
+def phase_pair_kernels(feats, pairs, band_feats, band_pairs, ratio: float, smi: str) -> dict:
+    """K5 and K9 against the plain matcher at the exhaustive build's 4,560
+    pairs, K9 against K5 (exactly) and the plain matcher on the band build's
+    list, each kernel's time beside the plain version's."""
+    import torch
+
+    from sfmx_torch.kernels.matching import match_pairs_float
+    from sfmx_torch.kernels.pairs import match_pairs_fused
+    from sfmx_torch.kernels.tiles import match_pairs_float_tiled
+    from tests.smoke_scenes import pair_near_ties
+
+    out = {}
+    errs9 = []
+    for tag, f, p in (("exhaustive", feats, pairs), ("band", band_feats, band_pairs)):
+        d, m = f.desc, f.kp.mask
+        k5 = match_pairs_fused(d, m, p, ratio=ratio)
+        k9 = match_pairs_float_tiled(d, m, p, ratio=ratio)
+        ref = match_pairs_float(d, m, p, ratio=ratio)
+        near = pair_near_ties(d, m, p, ratio, NEAR_TIE)
+        err5 = check_matcher(f"K5 {tag} {len(p)} pairs", k5, ref, near)
+        errs9.append(check_matcher(f"K9 {tag} {len(p)} pairs", k9, ref, near))
+        same = all(torch.equal(x, y) for x, y in zip(k9, k5))
+        log(f"[K9 {tag}] equal to K5 in every field: {same}")
+        assert same, f"K9 and K5 differ on the {tag} pairs"
+        w5 = cuda_ms(lambda: match_pairs_fused(d, m, p, ratio=ratio))
+        w9 = cuda_ms(lambda: match_pairs_float_tiled(d, m, p, ratio=ratio))
+        ms5 = kernel_ms(lambda: match_pairs_fused(d, m, p, ratio=ratio))
+        ms9 = kernel_ms(lambda: match_pairs_float_tiled(d, m, p, ratio=ratio))
+        pms = cuda_ms(lambda: match_pairs_float(d, m, p, ratio=ratio), reps=3, warm=1)
+        K = d.shape[1]
+        flop = 2.0 * len(p) * K * K * 128
+        log(f"[pair kernels] {tag} {len(p)} pairs K={K}: kernels' device time K5 {ms5:.3f} ms "
+            f"({len(p) / ms5 * 1e3:.0f} pairs/s, {flop / ms5 / 1e9:.1f} TFLOP/s), K9 {ms9:.3f} ms "
+            f"({len(p) / ms9 * 1e3:.0f} pairs/s); whole wrapper call K5 {w5:.3f} ms, K9 {w9:.3f} ms "
+            f"(host tile packing included); plain {pms:.3f} ms ({len(p) / pms * 1e3:.0f} "
+            f"pairs/s) on {smi}")
+        if tag == "exhaustive":
+            out["match_pairs_fused"] = {"max_abs_err": err5, "ms": ms5, "plain_ms": pms}
+        else:
+            out["match_pairs_tiled"] = {"max_abs_err": max(errs9), "ms": ms9, "plain_ms": pms}
+    return out
+
+
+def kernel_ms(fn, reps: int = 5) -> float:
+    """Device time per call of match_pairs.cu's two kernels (the pair
+    kernel and its finish) under torch.profiler, without the wrapper's host
+    work and its small device ops."""
+    _, by_name, _ = device_ms_per_run(fn, reps)
+    return sum(t for k, t in by_name.items() if "pairs_kernel" in k or "finish_kernel" in k)
+
+
+def phase_k10(feats, pairs, dev, smi: str) -> dict:
+    """K10 (K5's raw mode) on the first N_K10_PAIRS exhaustive pairs, masked
+    rows zeroed as its callers do: its own path (the raw per-pair top-2
+    entry, launch counts set to 0 before it and read after), then against
+    its plain version: s1/s2 within the tolerance, i1 equal where the row's
+    best two columns differ by more than it, j1 where the column's best two
+    rows do."""
+    import torch
+
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.kernels.matching import _bf16_sim
+    from sfmx_torch.kernels.pairs import match_pairs_top2, match_pairs_top2_plain
+
+    d = torch.where(feats.kp.mask[..., None], feats.desc, 0.0)
+    p = pairs[:N_K10_PAIRS]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    s1, i1, s2, j1 = match_pairs_top2(d, p)
+    torch.cuda.synchronize()
+    check_launches("K10 path", dict(_build.LAUNCHES.counts), {"match_pairs_top2": 2})
+    launches = _build.LAUNCHES.get("match_pairs_top2")
+    r1, ri, r2, rj = match_pairs_top2_plain(d, p)
+    pt = torch.as_tensor(p, device=dev).long()
+    gaps = []                                  # each column's best two rows, 64 pairs at a time
+    for s in range(0, len(pt), 64):
+        v = torch.topk(_bf16_sim(d[pt[s:s + 64, 0]], d[pt[s:s + 64, 1]]), 2, dim=-2).values
+        gaps.append(v[:, 0] - v[:, 1])
+    col_gap = torch.cat(gaps)
+    tol = KERNELS["match_pairs_top2"][2]
+    err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
+    row_clear, col_clear = (r1 - r2) > tol, col_gap > tol
+    bad_i = int((i1 != ri)[row_clear].sum())
+    bad_j = int((j1 != rj)[col_clear].sum())
+    ms = kernel_ms(lambda: match_pairs_top2(d, p))
+    pms = cuda_ms(lambda: match_pairs_top2_plain(d, p), reps=3, warm=1)
+    log(f"[K10] match_pairs_top2 {len(p)} pairs K={d.shape[1]}: max_abs_err {err:.3e} (tol {tol:.0e}); i1 mismatches {bad_i} outside "
+        f"{int((~row_clear).sum())} near-tie rows, j1 mismatches {bad_j} outside "
+        f"{int((~col_clear).sum())} near-tie columns; kernel {ms:.3f} ms, plain {pms:.3f} ms "
+        f"on {smi}")
+    assert err <= tol and bad_i == 0 and bad_j == 0, "K10 disagrees with its plain version"
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "launches": launches}
+
+
+def phase_front_crosscheck(feats, pairs, cfg, dev) -> None:
+    """N_XCHECK_PAIRS adjacent-frame pairs: the card's match and verify
+    stage outputs against the plain path on the CPU (the card's features
+    copied over), with the same injected Gumbel noise.  Match: valid equal
+    outside near-ties.  Verify (both fed the card's matches): f32 sums in
+    another order (the 8-point batch, the 3x3 SVD) can change which of two
+    hypotheses with near-equal counts wins, or whether the refit beats the
+    raw winner, and so swap a pair's kept model for one of the same quality;
+    a match whose squared Sampson error lies near the threshold may flip
+    under any model.  So per pair: inlier counts within XCHECK_SLACK, and
+    the inlier masks differ in no more matches than lie within 1% of the
+    threshold on either side plus XCHECK_SLACK."""
+    import torch
+
+    from sfmx_torch.cli.pipeline import match_images, verify_matches
+    from sfmx_torch.core import cameras
+    from sfmx_torch.kernels import matching
+    from sfmx_torch.kernels.features import Features
+    from sfmx_torch.solvers.ransac import gumbel_noise
+    from tests.smoke_scenes import pair_near_ties
+
+    sel = pairs[pairs[:, 1] == pairs[:, 0] + 1][:N_XCHECK_PAIRS]
+    fc = Features.from_numpy(feats.to_numpy(), "cpu")
+    card = match_images(feats, sel, cfg)
+    plain = match_images(fc, sel, cfg)
+    near = pair_near_ties(fc.desc, fc.kp.mask, sel, cfg.match.ratio, NEAR_TIE)
+    bad_v = int((card.valid.cpu() != plain.valid)[~near].sum())
+    K, H = feats.desc.shape[1], cfg.match.gv_hypotheses
+    g = gumbel_noise((len(sel), H, K), device="cpu", generator=torch.Generator().manual_seed(8))
+    cam_k = np.zeros(len(fc.desc), np.int32)
+    vc, cc = verify_matches(feats, sel, card, INTR[None], cam_k, cfg, gumbel=g)
+    card_cpu = matching.MatchResult(*(x.cpu() for x in card))
+    vp, cp = verify_matches(fc, sel, card_cpu, INTR[None], cam_k, cfg, gumbel=g)
+    thr = (cfg.match.gv_px_thresh / FOCAL) ** 2
+    errs = []
+    for f, m, gg in ((fc, card_cpu, g), (feats, card, g.to(dev))):
+        xn = cameras.pixel_to_normalized(torch.as_tensor(INTR, device=f.kp.uv.device)[None],
+                                         f.kp.uv)
+        errs.append(matching.geometric_verify_errors(gg, xn, f.kp.mask, sel, m,
+                                                     threshold=thr)[0].cpu() / thr)
+    band = ((errs[0] - 1.0).abs() < 0.01) | ((errs[1] - 1.0).abs() < 0.01)
+    diff = (vc.valid.cpu() != vp.valid).sum(dim=1)
+    dcnt = (cc.cpu() - cp).abs()
+    slack = torch.clamp(XCHECK_SLACK * cp, min=2.0)
+    fin = torch.isfinite(errs[0]) & torch.isfinite(errs[1]) & card_cpu.valid
+    rel = (errs[1] - errs[0]).abs()[fin]
+    log(f"[front crosscheck] {len(sel)} adjacent pairs, card vs plain CPU path: match valid "
+        f"mismatches {bad_v} outside {int(near.sum())} near-tie rows; verified inlier mask "
+        f"differences per pair {diff.tolist()} against {band.sum(dim=1).tolist()} matches within "
+        f"1% of the threshold on either side; inlier counts {cp.tolist()} (CPU), max |diff| "
+        f"{int(dcnt.max())}; |err card - err cpu| / threshold: median {float(rel.median()):.2e}")
+    assert bad_v == 0, "front end: card and CPU matches differ outside near-ties"
+    assert bool((dcnt <= slack).all()), "front end: card and CPU inlier counts differ"
+    assert bool((diff <= band.sum(dim=1) + slack).all()), "front end: inlier masks differ"
+
+
+def phase_front_profile(images, feats, pairs, stages: dict, cfg, dev, smi: str) -> None:
+    """Device time of the exhaustive build's stages under torch.profiler
+    (5 runs each: a window of one ~10 ms match run came back with no device
+    events) against their wall times in the unprofiled build.  Each
+    stage runs as its body, outside the log scope (a record_function range)
+    that build_front_end puts around it."""
+    from sfmx_torch.cli.pipeline import extract_features, verify_matches
+    from sfmx_torch.kernels.matching import match_pairs_float_auto
+
+    mc = cfg.match
+    res = match_pairs_float_auto(feats.desc, feats.kp.mask, pairs, ratio=mc.ratio,
+                                 cross_check=mc.cross_check, kernel=mc.kernel)
+    n = feats.desc.shape[0]
+    runs = {"extract": lambda: extract_features(images, cfg, dev),
+            "match": lambda: match_pairs_float_auto(
+                feats.desc, feats.kp.mask, pairs, ratio=mc.ratio,
+                cross_check=mc.cross_check, kernel=mc.kernel),
+            "geometric_verify": lambda: verify_matches(
+                feats, pairs, res, INTR[None], np.zeros(n, np.int32), cfg)}
+    parts = []
+    for stage, fn in runs.items():
+        ms, by_name, table = device_ms_per_run(fn, 5)
+        assert ms > 0, f"front end {stage}: the profiler recorded no device time"
+        wall_ms = stages[stage]["wall_s"] * 1e3
+        parts.append(f"{stage} {ms:.3f} ms of {wall_ms:.1f} ms wall (busy {ms / wall_ms:.3f})")
+        out = ROOT / "chiprun_out" / f"profile_front_{stage}.txt"
+        out.parent.mkdir(exist_ok=True)
+        out.write_text(f"{smi}\nexhaustive build, {stage}, 5 runs\n{table}\n")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"[profile] front end {stage}: " + "; ".join(f"{t:.3f} ms {k[:60]}" for k, t in top))
+    log(f"[profile] front end B={n}, {len(pairs)} pairs, device time per stage "
+        f"(torch.profiler) against the build's stage wall: " + ", ".join(parts)
+        + f"; tracks is host work; on {smi}")
+
+
+def extraction_launches() -> dict:
+    """Launches of one extraction call (a chunk of 16 queries, or a whole
+    build) through 2 octaves: per octave, K1 one per FED step of its 4
+    level segments, K2 two (gradients, then the determinant of all levels),
+    K3 one."""
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.kernels import features as F
+
+    fcfg = PipelineConfig().features
+    n_oct = fcfg.n_octaves
+    n_steps = sum(len(taus) for taus in F.level_taus(
+        F.ScaleSpaceConfig(sigma_levels=tuple(fcfg.sigma_levels))))
+    return {"diffuse_segment": n_steps * n_oct, "response_levels": 2 * n_oct,
+            "describe_upright": n_oct}
+
+
+def check_launches(tag: str, got: dict, expected: dict) -> None:
+    expected = {k: n for k, n in expected.items() if n}
+    log(f"[counters] {tag} launches {json.dumps(got)}; expected {json.dumps(expected)}")
+    assert got == expected, f"{tag}: launches {got}, expected {expected}"
+
+
+def phase_front_end(dev, smi: str, profile: bool):
+    """Phases 13-15 on a walk across the room and back: its first N_BUILD
+    frames exhaustively (K5), all N_BAND frames by retrieval pairs in band
+    tiles (K9, the leftovers K5), the first N_BUILD frames' window pairs
+    with binary descriptors (plain Hamming matching); then the pair kernels
+    against their plain versions and the card against the CPU.  Returns
+    (kernel stats, the launches of each kernel's path)."""
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.kernels.tiles import pack_tiles
+    from tests import smoke_scenes
+
+    t0 = time.perf_counter()
+    poses = smoke_scenes.loop_walk_poses(N_BAND)
+    frames = smoke_scenes.render_parallel(0, poses, W_IMG, H_IMG, FOCAL, RENDER_WORKERS)
+    log(f"[front] {N_BAND} frames of a walk across the room and back rendered in "
+        f"{time.perf_counter() - t0:.1f} s ({RENDER_WORKERS} processes)")
+    cfg = PipelineConfig()
+    mc = cfg.match
+    exh, exh_launches, exh_stages = run_front_end("exhaustive", frames[:N_BUILD], cfg, dev)
+    assert len(exh[1]) == N_BUILD * (N_BUILD - 1) // 2
+    truth_gates("exhaustive", poses[:N_BUILD], exh, mc.gv_min_inliers)
+
+    band_cfg = dataclasses.replace(cfg, match=dataclasses.replace(
+        mc, pair_mode="retrieval", window=8, retrieval_k=8, kernel="tiles"))
+    band, band_launches, _ = run_front_end("band", frames, band_cfg, dev)
+    truth_gates("band", poses, band, mc.gv_min_inliers)
+    bp, bcnt = band[1], band[3].cpu().numpy()
+    half = N_BAND // 2
+    loops = (bp[:, 0] < half) & (bp[:, 1] >= half) & (bp[:, 1] - bp[:, 0] > band_cfg.match.window)
+    n_loop_kept = int((bcnt[loops] >= mc.gv_min_inliers).sum())
+    _meta, _pos, _dense, rest_idx, n_tiles = pack_tiles(bp, N_BAND)
+    log(f"[band] {int(loops.sum())} loop-closure pairs proposed across the two passes, "
+        f"{n_loop_kept} kept by verification; {n_tiles} tiles through K9, "
+        f"{len(rest_idx)} leftover pairs through K5")
+    assert n_loop_kept > 0, "band: no loop closure survived verification"
+
+    bin_cfg = dataclasses.replace(cfg, match=dataclasses.replace(
+        mc, pair_mode="window", binary=True))
+    binr, bin_launches, _ = run_front_end("binary", None, bin_cfg, dev, feats=exh[0])
+    truth_gates("binary", poses[:N_BUILD], binr, mc.gv_min_inliers)
+
+    # K5 and K9 launch twice per wrapper call (the pair kernel, then finish)
+    ext = extraction_launches()
+    check_launches("exhaustive build", exh_launches, {**ext, "match_pairs_fused": 2})
+    check_launches("band build", band_launches,
+                   {**ext, "match_pairs_tiled": 2 * (n_tiles > 0),
+                    "match_pairs_fused": 2 * (len(rest_idx) > 0)})
+    check_launches("binary build", bin_launches, {})
+
+    stats = phase_pair_kernels(exh[0], exh[1], band[0], bp, mc.ratio, smi)
+    k10 = phase_k10(exh[0], exh[1], dev, smi)
+    stats["match_pairs_top2"] = {k: k10[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    phase_front_crosscheck(exh[0], exh[1], cfg, dev)
+    if profile:
+        phase_front_profile(frames[:N_BUILD], exh[0], exh[1], exh_stages, cfg, dev, smi)
+    return stats, {"match_pairs_fused": exh_launches.get("match_pairs_fused", 0),
+                   "match_pairs_tiled": band_launches.get("match_pairs_tiled", 0),
+                   "match_pairs_top2": k10["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -745,8 +1217,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import sfmx_torch  # noqa: F401  (sets the TF32 flags)
     from examples import room
-    from sfmx_torch.cli.config import PipelineConfig
-    from sfmx_torch.kernels import features as F
     from tests import smoke_scenes
 
     t_start = time.perf_counter()
@@ -789,26 +1259,18 @@ def main() -> int:
         phase_profile({"extraction": s_extract, "streaming localization": s_localize},
                       s_wall, smi, "streaming", SERVE_BATCH)
 
-    # one chunk of 16 queries through 2 octaves; per octave, K1 launches one
-    # kernel per FED step of its 4 level segments, K2 two (gradients, then
-    # the determinant of all levels) and K3 one
-    fcfg = PipelineConfig().features
-    n_chunks, n_oct = 1, fcfg.n_octaves
-    n_steps = sum(len(taus) for taus in F.level_taus(
-        F.ScaleSpaceConfig(sigma_levels=tuple(fcfg.sigma_levels))))
-    expected = {"diffuse_segment": n_steps * n_oct * n_chunks,
-                "response_levels": 2 * n_oct * n_chunks,
-                "describe_upright": n_oct * n_chunks}
-    log(f"[counters] gather-path launches {json.dumps(launches)}; expected {json.dumps(expected)}")
-    for k, n in expected.items():
-        assert launches.get(k, 0) == n > 0, f"{k}: {launches.get(k, 0)} launches, expected {n}"
+    front_stats, front_launches = phase_front_end(dev, smi, profile)
+    kstats.update(front_stats)
+
+    check_launches("gather path", launches, extraction_launches())
     log(f"[counters] serving-run launches {json.dumps(serve_launches)}")
-    for k in KERNELS:
+    for k in SERVE_KERNELS:
         assert serve_launches.get(k, 0) > 0, f"{k} was not launched in the serving run"
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
 
+    path_launches = {**{k: serve_launches[k] for k in SERVE_KERNELS}, **front_launches}
     kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
-                "launches": serve_launches[k], **kstats[k]} for k in KERNELS]
+                "launches": path_launches[k], **kstats[k]} for k in KERNELS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -207,6 +207,32 @@ class Features(NamedTuple):
     desc: torch.Tensor       # (B,K,128) float
     desc_bits: torch.Tensor  # (B,K,N_WORDS) int32, bit-identical to uint32
 
+    @classmethod
+    def from_numpy(cls, f, device) -> "Features":
+        """From any record with the same fields as array-likes (the
+        reference's Features included) onto ``device``: uint32 bit words
+        become int32 of the same bits, levels int64."""
+        def t(x, dtype):  # a copy: the reference's arrays are read-only
+            return torch.as_tensor(np.array(x), device=device).to(dtype)
+
+        kp = f.kp
+        bits = np.array(f.desc_bits).astype(np.uint32).view(np.int32)
+        return cls(kp=Keypoints(uv=t(kp.uv, torch.float32), level=t(kp.level, torch.int64),
+                                sigma=t(kp.sigma, torch.float32),
+                                angle=t(kp.angle, torch.float32),
+                                response=t(kp.response, torch.float32),
+                                mask=t(kp.mask, torch.bool)),
+                   desc=t(f.desc, torch.float32),
+                   desc_bits=torch.as_tensor(bits, device=device))
+
+    def to_numpy(self) -> "Features":
+        """The same record with numpy fields, as the reference holds them
+        (levels int32, bit words uint32)."""
+        kp = Keypoints(*(x.cpu().numpy() for x in self.kp))
+        kp = kp._replace(level=kp.level.astype(np.int32))
+        return Features(kp=kp, desc=self.desc.cpu().numpy(),
+                        desc_bits=self.desc_bits.cpu().numpy().view(np.uint32))
+
 
 def _maxpool3x3(x: torch.Tensor) -> torch.Tensor:
     """(B,L,H,W) -> same-shape 3x3 spatial max (-inf padding)."""

@@ -1,7 +1,9 @@
 """Numpy-only scenes shared by the port's tests and ``chip_smoke.py``.
 
 - the textured room of ``examples/room.py``: rendered frames (serially or
-  in worker processes), and a scene with one landmark per keyframe
+  in worker processes), a walk across it and back (``loop_walk_poses``),
+  the surface point behind each pixel (``raycast_room``), and a scene with
+  one landmark per keyframe
   keypoint, placed where the keypoint's ray leaves the room box at the
   true pose;
 - the same room with one landmark per surface point (``merged_room_scene``):
@@ -44,6 +46,22 @@ def render_parallel(seed: int, poses, width: int, height: int, focal: float,
     tasks = [(seed, R, eye, width, height, focal) for R, _t, eye in poses]
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         return np.stack(list(ex.map(_render_one, tasks)))
+
+
+def loop_walk_poses(n: int, offset=(0.0, -0.1, 0.3), turn_deg: float = 5.0):
+    """A walk across the room and back: the first n//2 poses of
+    ``room.walk_poses``, then the same stretch in reverse order, ``offset``
+    metres away and turned by ``turn_deg``, so the second pass revisits the
+    places of the first (loop closures for retrieval to find)."""
+    from examples import room
+
+    half = n // 2
+    poses = room.walk_poses(half)
+    for R0, _t, eye in room.walk_poses(n - half, heading_deg=25.0 + turn_deg)[::-1]:
+        e = eye + np.asarray(offset)
+        R, t = room.look_at(e, e + 5.0 * R0[2])        # R0[2]: the viewing direction
+        poses.append((R, t, e))
+    return poses
 
 
 def raycast_room(R: np.ndarray, eye: np.ndarray, uv: np.ndarray, intr: np.ndarray,
@@ -148,3 +166,35 @@ def tripwire_case(seed: int = 42, P: int = 8192, C: int = 64, Kc: int = 128,
                      f * X[sel, 1] / X[sel, 2] + Ht / 2], 1).astype(np.float32)
     intr = np.array([f, f, Wt / 2, Ht / 2, 0, 0, 0], np.float32)
     return cols, lm_desc[sel], q_uv, intr
+
+
+def pair_near_ties(descs, masks, pairs, ratio: float, tol: float = 1e-5):
+    """Rows of a pair-matching result whose outcome a summation-order
+    difference of up to ``tol`` in the scores can flip, by the plain
+    (dense) semantics: the row's best two columns within tol, the best two
+    rows of its winning column within tol, or the ratio test within 4 tol
+    of its boundary (d = 2 - 2 s doubles an error).  A masked row's outcome
+    is fixed (score NEG, index 0, not valid), so it is never a near-tie.
+    torch, on the inputs' device, chunked over pairs.  Returns an (Np,K)
+    bool tensor."""
+    import torch
+
+    pairs = torch.as_tensor(np.asarray(pairs), device=descs.device).to(torch.int64)
+    K = descs.shape[1]
+    step = max(1, (1 << 26) // (K * K))
+    out = []
+    for s in range(0, len(pairs), step):
+        a, b = pairs[s:s + step, 0], pairs[s:s + step, 1]
+        da = descs[a].to(torch.bfloat16).to(torch.float32)
+        db = descs[b].to(torch.bfloat16).to(torch.float32)
+        sim = da @ db.transpose(-1, -2)
+        both = masks[a][:, :, None] & masks[b][:, None, :]
+        sim = torch.where(both, sim, torch.full_like(sim, -1e30))
+        v, i = torch.topk(sim, 2, dim=-1)
+        cv = torch.topk(sim, 2, dim=-2).values                      # (n,2,K)
+        col_gap = torch.gather(cv[:, 0] - cv[:, 1], 1, i[..., 0])
+        d1 = torch.clamp(2.0 - 2.0 * v[..., 0], min=0.0)
+        d2 = torch.clamp(2.0 - 2.0 * v[..., 1], min=1e-12)
+        out.append(((v[..., 0] - v[..., 1] < tol) | (col_gap < tol)
+                    | ((d1 - ratio * ratio * d2).abs() < 4 * tol)) & masks[a])
+    return torch.cat(out) if out else torch.zeros((0, K), dtype=torch.bool)

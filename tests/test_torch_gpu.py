@@ -1,4 +1,5 @@
-"""sfmx_torch CUDA kernels K1-K4 against their plain PyTorch versions.
+"""sfmx_torch CUDA kernels K1-K5, K9 and K10 against their plain PyTorch
+versions.
 
 These need a card and skip without one.  The file imports neither jax nor
 sfmx, so it also runs where only the port is installed:
@@ -13,7 +14,11 @@ from sfmx_torch.kernels import _build
 from sfmx_torch.kernels import describe as dsc
 from sfmx_torch.kernels import features as F
 from sfmx_torch.kernels import match as mt
+from sfmx_torch.kernels import matching as mm
+from sfmx_torch.kernels import pairs as mp
 from sfmx_torch.kernels import scale_space as ss
+from sfmx_torch.kernels import tiles as mtl
+from tests.smoke_scenes import pair_near_ties
 
 torch.set_num_threads(2)
 CFG = F.ScaleSpaceConfig()
@@ -177,3 +182,130 @@ def test_k4_rejects_bad_inputs(cuda):
         mt.match_top2(a, torch.zeros(2048, 128))
     with pytest.raises(ValueError):
         mt.match_top2(a.int(), torch.zeros(2048, 128, device=cuda, dtype=torch.int32))
+
+
+def _pair_descs(g, C, K, D=128, planted=96):
+    """Unit descriptors where consecutive images share ``planted`` noisy
+    rows (so matches are accepted), an exact duplicate column in image 1
+    (ties go to the lower index) and a duplicate row in image 0 (the column
+    max keeps the lower row)."""
+    base = _unit_rows(g, K, D)
+    d = torch.stack([_unit_rows(g, K, D) for _ in range(C)])
+    for c in range(C):
+        noisy = base[:planted] + 0.05 * torch.randn((planted, D), generator=g)
+        d[c, :planted] = noisy / torch.linalg.vector_norm(noisy, dim=1, keepdim=True)
+    d[1, K - 1] = d[1, 3]
+    d[0, K - 2] = d[0, 5]
+    return d
+
+
+def _check_pairs(got, ref, near, tol=1e-5):
+    """score within tol everywhere; valid equal and idx equal on accepted
+    rows outside near-ties.  Returns the number of near-tie rows."""
+    assert float((got.score - ref.score).abs().max()) <= tol
+    clear = ~near
+    assert bool((got.valid == ref.valid)[clear].all())
+    acc = clear & ref.valid
+    assert bool((got.idx == ref.idx)[acc].all())
+    return int(near.sum())
+
+
+@pytest.mark.parametrize("K,D,p_mask", [(256, 128, 0.0), (200, 128, 0.2), (1024, 64, 0.1)])
+def test_k5_match_pairs_fused_matches_plain(cuda, K, D, p_mask):
+    """K5 against the dense plain matcher on the card, ragged K and D < 128
+    included: score atol 1e-5 (summation order), valid and accepted idx
+    equal outside near-ties; a masked row scores NEG with index 0; two
+    launches counted (pair kernel + finish)."""
+    g = torch.Generator().manual_seed(K + D)
+    C = 6
+    d = _pair_descs(g, C, K, D).to(cuda)
+    m = (torch.rand((C, K), generator=g) >= p_mask).to(cuda)
+    pairs = np.array([(a, b) for a in range(C) for b in range(a + 1, C)], np.int32)
+    before = _build.LAUNCHES.get("match_pairs_fused")
+    got = mp.match_pairs_fused(d, m, pairs, ratio=0.85)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("match_pairs_fused") == before + 2
+    ref = mm.match_pairs_float(d, m, pairs, ratio=0.85)
+    _check_pairs(got, ref, pair_near_ties(d, m, pairs, 0.85))
+    assert int(ref.valid.sum()) > 100
+    ma = m[torch.as_tensor(pairs[:, 0], device=cuda)]
+    assert bool((got.score[~ma] == -1e30).all()) and bool((got.idx[~ma] == 0).all())
+    nocc = mp.match_pairs_fused(d, m, pairs, ratio=0.85, cross_check=False)
+    assert int(nocc.valid.sum()) >= int(got.valid.sum())
+
+
+def test_k10_match_pairs_top2_matches_plain(cuda):
+    """K10 (the raw mode): s1/s2 atol 1e-5; i1 equal where the row's best
+    two columns differ by more than 1e-5, j1 where the column's best two
+    rows do; the planted duplicates resolve to the lower index."""
+    g = torch.Generator().manual_seed(10)
+    C, K = 5, 384
+    d = _pair_descs(g, C, K).to(cuda)
+    pairs = np.array([(0, 1), (1, 2), (0, 4), (3, 2), (1, 0)], np.int32)
+    before = _build.LAUNCHES.get("match_pairs_top2")
+    s1, i1, s2, j1 = mp.match_pairs_top2(d, pairs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("match_pairs_top2") == before + 2
+    r1, ri, r2, rj = mp.match_pairs_top2_plain(d, pairs)
+    assert float((s1 - r1).abs().max()) <= 1e-5 and float((s2 - r2).abs().max()) <= 1e-5
+    assert bool((i1 == ri)[(r1 - r2) > 1e-5].all())
+    p = torch.as_tensor(pairs, device=cuda).long()
+    sim = (d[p[:, 0]].bfloat16().float() @ d[p[:, 1]].bfloat16().float().transpose(1, 2))
+    cv = torch.topk(sim, 2, dim=1).values
+    assert bool((j1 == rj)[(cv[:, 0] - cv[:, 1]) > 1e-5].all())
+    # pair (1,0): image 1's rows 3 and K-1 are equal, as are image 0's
+    # columns 5 and K-2, so the higher of each never wins
+    assert not bool((j1[4] == K - 1).any()) and not bool((i1[4] == K - 2).any())
+
+
+def test_k9_tiled_equals_k5_exactly(cuda):
+    """K9 on a band of 24 images (window 6) plus sparse extras: identical
+    to K5 on the same pairs in every field (the same arithmetic per
+    element), and to the plain matcher outside near-ties; the band goes
+    through K9, the leftovers through K5."""
+    g = torch.Generator().manual_seed(24)
+    C, K = 24, 256
+    d = _pair_descs(g, C, K).to(cuda)
+    m = (torch.rand((C, K), generator=g) > 0.1).to(cuda)
+    band = {(a, b) for a in range(C) for b in range(a + 1, min(a + 7, C))}
+    band |= {(0, 20), (3, 17), (5, 22), (1, 12)}
+    pairs = np.array(sorted(band), np.int32)
+    t0, f0 = _build.LAUNCHES.get("match_pairs_tiled"), _build.LAUNCHES.get("match_pairs_fused")
+    got = mtl.match_pairs_float_tiled(d, m, pairs, ratio=0.85)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("match_pairs_tiled") == t0 + 2
+    assert _build.LAUNCHES.get("match_pairs_fused") == f0 + 2
+    k5 = mp.match_pairs_fused(d, m, pairs, ratio=0.85)
+    for x, y in zip(got, k5):
+        assert torch.equal(x, y)
+    _check_pairs(got, mm.match_pairs_float(d, m, pairs, ratio=0.85),
+                 pair_near_ties(d, m, pairs, 0.85))
+
+
+def test_auto_dispatch_never_runs_plain_on_card(cuda, monkeypatch):
+    """On CUDA tensors "auto"/"pallas" launch K5 and "tiles" K9 (or K5 for
+    fewer than 8 images); the plain matcher is never called; D > 128
+    raises; "dense" is the plain matcher by choice."""
+    g = torch.Generator().manual_seed(3)
+    d = _pair_descs(g, 9, 128).to(cuda)
+    m = torch.ones((9, 128), dtype=torch.bool, device=cuda)
+    pairs = np.array([(a, b) for a in range(9) for b in range(a + 1, 9)], np.int32)
+    dense = mm.match_pairs_float(d, m, pairs)
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain matcher called on the card")
+
+    monkeypatch.setattr(mm, "match_pairs_float", no_plain)
+    monkeypatch.setattr(mp, "match_pairs_float", no_plain)
+    monkeypatch.setattr(mtl, "match_pairs_float", no_plain)
+    for kernel, name in (("auto", "match_pairs_fused"), ("pallas", "match_pairs_fused"),
+                         ("tiles", "match_pairs_tiled")):
+        before = _build.LAUNCHES.get(name)
+        r = mm.match_pairs_float_auto(d, m, pairs, kernel=kernel, ratio=0.8)
+        assert _build.LAUNCHES.get(name) > before, kernel
+        assert bool((r.valid == dense.valid).float().mean() > 0.99)
+    with pytest.raises(ValueError):
+        mm.match_pairs_float_auto(torch.zeros((2, 64, 160), device=cuda), m[:2, :64],
+                                  np.array([[0, 1]], np.int32))
+    with pytest.raises(AssertionError):
+        mm.match_pairs_float_auto(d, m, pairs, kernel="dense")

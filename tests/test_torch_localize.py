@@ -303,13 +303,11 @@ def test_config_defaults_match_reference():
             dataclasses.asdict(getattr(jcfg.load_config(None, ov), sub)), sub
 
 
-def test_streaming_policy_raises_instead_of_gather(monkeypatch):
+def test_streaming_policy_takes_streaming_not_gather(monkeypatch):
     """use_streaming matches the reference's policy, and where it says yes
     ``localize_images`` takes the streaming path (kernel K4's entry) and
     never quietly falls back to the gather path: the gather entry is
-    replaced by one that raises.  (The name dates from before K4 was
-    ported, when the streaming branch raised; it is kept so the test's
-    history stays one line.)"""
+    replaced by one that raises."""
     cols = _tripwire_like_map(np.random.default_rng(1), P=512, C=4, Kc=64, vlad=False)
     tmap = LocalizationMap.from_numpy(cols, "cpu")
     jmap = JMap(**{k: jnp.asarray(v) for k, v in cols.items()})
