@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the sfmx_torch query-localization, map-scale serving and map-build
-front-end paths once on one CUDA card.
+"""Drive the sfmx_torch query-localization, map-scale serving, map-build
+front-end and reconstruction paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
-  2. build      — compiles the CUDA kernels K1-K5, K9 and K10 from
-                  sfmx_torch/csrc, one nvcc per source, and native/tracks.cpp
-                  with g++, all started together
+  2. build      — compiles the CUDA kernels K1-K10 from sfmx_torch/csrc,
+                  one nvcc per source, and native/tracks.cpp with g++, all
+                  started together
   3. kernels    — K1-K3 against their plain PyTorch versions at the gather
                   path's shapes (B=16, 480x640 and 240x320, L=5, K=1024/512),
                   max abs error beside the stated tolerance, CUDA-event times;
@@ -81,7 +81,38 @@ Phases (each asserts; any failure exits non-zero):
                   implies, of the serving run (K1-K4 all > 0), and of each
                   front-end build (K1-K3 per extraction call; K5 and K9 two
                   per wrapper call)
-The last two lines are the kernel JSON and the device JSON.
+ 17. BA kernels — a random bundle-adjustment problem of 512 cameras, 20,000
+                  points and 200,000 observations (tp = 32 slots per point,
+                  30 CG steps): K7, K6 and K8 against their plain versions
+                  (errors relative to the largest entry beside the stated
+                  tolerances), CUDA-event times (phase 18 repeats this at
+                  the build's own shapes, whose numbers go into the kernels
+                  line), LM iterations/s of
+                  ``ba_solve(dense_cg=True)`` beside the planes path, and
+                  the same dense solve twice (bit-identical or not); with
+                  --profile the solve's device ms and busy share
+ 18. build_map  — the 96-frame exhaustive build again, now through
+                  ``build_map`` to a ``Scene`` (default ``PipelineConfig``,
+                  ``max_components=1``), launch counts set to 0 before it.
+                  Gates: 96/96 registered, median reprojection < 1 px, ATE
+                  of the camera centers against the rendered poses < 0.1 m
+                  after a similarity alignment, the final BA on the dense
+                  path, K6/K7/K8 launched with K6 = (cg_iters + 2) x K7; then
+                  K6-K8 against their plain versions on the final BA's table
+ 19. loop       — ``save_scene``, ``load_scene_np``,
+                  ``build_localization_map`` from the built scene, and 16
+                  held-out frames localized against it: median center error
+                  < 0.2 m after the same similarity, >= 12/16 localized
+ 20. BA crosscheck — one 8-camera ``ba_solve`` on the card (K6-K8) against
+                  the plain path on the CPU
+The last two lines are the kernel JSON and the device JSON.  Every kernel
+carries ``bound_ms``: the larger of its necessary bytes (inputs read once,
+outputs written once) at 3.35 TB/s and its operations at the card's peak
+for their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), from this
+run's shapes; ``library_ms`` is null throughout: no single PyTorch call
+computes any of these functions (the matchers' plain versions are a matmul
+plus top-k, mask and gather calls; the BA kernels' several gathers, block
+products and ``index_add_`` calls).
 """
 from __future__ import annotations
 
@@ -112,6 +143,11 @@ TRUTH_M, TRUTH_SHARE = 0.03, 0.95   # true match: surface points within 3 cm (or
 TRACK_OBS_SHARE = 0.85         # true track observations (the reference's builder: 0.88-0.95)
 NEAR_TIE = 1e-5                # score gap under which summation order may flip a winner
 
+BA_SHAPE = dict(C=512, P=20000, O=200000, tp=32, cg_iters=30, lm_iters=10)
+N_LOOP_QUERIES, N_LOOP_MIN = 16, 12
+ATE_GATE_M, REPROJ_GATE_PX = 0.1, 1.0
+HBM_BYTES_S, PEAK_OPS_S = 3.35e12, {"bf16": 989e12, "f32": 67e12}
+
 SERVE_KERNELS = ("diffuse_segment", "response_levels", "describe_upright", "match_top2")
 # kernel name -> (source, TPU kernel it replaces, stated tolerance on max abs error)
 KERNELS = {
@@ -129,6 +165,9 @@ KERNELS = {
                           "sfmx/kernels/pallas_tiles.py:214", NEAR_TIE),
     "match_pairs_top2": ("sfmx_torch/csrc/match_pairs.cu",
                          "sfmx/kernels/pallas_pairs.py:127", NEAR_TIE),
+    "schur_cross_matvec": ("sfmx_torch/csrc/ba.cu", "sfmx/kernels/segsum.py:302", 1e-4),
+    "ba_assemble_fused": ("sfmx_torch/csrc/ba.cu", "sfmx/kernels/segsum.py:516", 1e-4),
+    "ba_cost_fused": ("sfmx_torch/csrc/ba.cu", "sfmx/kernels/segsum.py:587", 1e-4),
 }
 # Tolerances: K1 — the kernel contracts multiply-adds into FMAs and the
 # Perona-Malik steps amplify last-bit differences (levels lie in [0,1]);
@@ -136,7 +175,19 @@ KERNELS = {
 # of [0,1] samples, summed in another order than the plain version; K4, K5,
 # K9, K10 — scores of unit vectors in [-1,1]: the bf16 products are exact in
 # f32 and only the order of the 128-term sums differs, so winners are
-# compared outside near-ties (a gap below NEAR_TIE).
+# compared outside near-ties (a gap below NEAR_TIE); K6-K8 — errors relative
+# to the output's largest entry: the reprojection residual is a difference
+# of pixel coordinates ~300 that leaves ~0.3, so an FMA contracted otherwise
+# moves it by ~3e-5 relative, a Huber weight delta/|r| repeats that, and the
+# sums over a point's or a camera's observations run in another order.
+
+
+def bound(n_bytes: float, n_ops: float, kind: str) -> dict:
+    """The least time the card could take: necessary bytes at the memory
+    rate against necessary operations at the peak rate of their type."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / PEAK_OPS_S[kind] * 1e3
+    return {"bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None}
 
 
 def log(msg: str) -> None:
@@ -196,7 +247,7 @@ def phase_build():
     from sfmx_torch.recon import _native_tracks
 
     t0 = time.perf_counter()
-    libs = ("scale_space", "describe", "match_top2", "match_pairs")
+    libs = ("scale_space", "describe", "match_top2", "match_pairs", "ba")
     # one nvcc per source and the track builder's g++, all together, so no
     # build lands in a measured stage
     with ThreadPoolExecutor(len(libs) + 1) as ex:
@@ -267,6 +318,21 @@ def phase_kernels(images, dev) -> dict:
         }
         errs = {"diffuse_segment": err1, "response_levels": err2, "describe_upright": err3}
         shape = f"B={B} {H}x{W} L={cfg.n_levels} K={K}"
+        # necessary work: K1 reads and writes one level per segment and does
+        # ~30 FLOP per pixel and FED step (4 differences, 4 conductivities
+        # with a division each, the flux sum, the update); K2 reads the
+        # levels and writes one response each (~15 FLOP per pixel: three
+        # second differences and the determinant); K3 reads the smaller of
+        # all levels and its keypoints' 24x24 bilinear samples (~12 FLOP
+        # each) plus 5 keypoint fields, and writes 128 floats per keypoint
+        px, nl = B * H * W, levels.shape[1]
+        n_kp = int(kp.mask.sum())
+        bounds = {
+            "diffuse_segment": bound(len(segs) * 2 * px * 4, 30.0 * px * sum(map(len, segs)), "f32"),
+            "response_levels": bound(2 * nl * px * 4, 15.0 * nl * px, "f32"),
+            "describe_upright": bound(min(nl * px * 4, n_kp * 576 * 4) + B * K * (128 + 5) * 4,
+                                      12.0 * 576 * n_kp, "f32"),
+        }
         for name, err in errs.items():
             tol = KERNELS[name][2]
             ms, pms = times[name]
@@ -275,7 +341,7 @@ def phase_kernels(images, dev) -> dict:
                 + (" (all 4 segments)" if name == "diffuse_segment" else ""))
             assert err <= tol, f"{name} at {shape}: max_abs_err {err} > {tol}"
             if octave == 0:
-                out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+                out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **bounds[name]}
             else:
                 out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     return out
@@ -644,7 +710,8 @@ def phase_k4(lmap, frames, dev) -> dict:
         f"({flop / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms")
     assert err <= tol, f"match_top2: max_abs_err {err} > {tol}"
     assert bad == 0, f"match_top2: {bad} index mismatches outside near-ties"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+            **bound((a.shape[0] + b.shape[0]) * 128 * 2 + a.shape[0] * 12, flop, "bf16")}
 
 
 def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
@@ -979,10 +1046,14 @@ def phase_pair_kernels(feats, pairs, band_feats, band_pairs, ratio: float, smi: 
             f"({len(p) / ms9 * 1e3:.0f} pairs/s); whole wrapper call K5 {w5:.3f} ms, K9 {w9:.3f} ms "
             f"(host tile packing included); plain {pms:.3f} ms ({len(p) / pms * 1e3:.0f} "
             f"pairs/s) on {smi}")
+        # necessary work: every image's descriptors read once (bf16), one
+        # (idx, valid, score) row per pair and keypoint written
+        bnd = bound(d.shape[0] * K * 128 * 2 + len(p) * K * 9, flop, "bf16")
         if tag == "exhaustive":
-            out["match_pairs_fused"] = {"max_abs_err": err5, "ms": ms5, "plain_ms": pms}
+            out["match_pairs_fused"] = {"max_abs_err": err5, "ms": ms5, "plain_ms": pms, **bnd}
         else:
-            out["match_pairs_tiled"] = {"max_abs_err": max(errs9), "ms": ms9, "plain_ms": pms}
+            out["match_pairs_tiled"] = {"max_abs_err": max(errs9), "ms": ms9, "plain_ms": pms,
+                                        **bnd}
     return out
 
 
@@ -1034,7 +1105,9 @@ def phase_k10(feats, pairs, dev, smi: str) -> dict:
         f"{int((~col_clear).sum())} near-tie columns; kernel {ms:.3f} ms, plain {pms:.3f} ms "
         f"on {smi}")
     assert err <= tol and bad_i == 0 and bad_j == 0, "K10 disagrees with its plain version"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "launches": launches}
+    K = d.shape[1]
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "launches": launches,
+            **bound(d.shape[0] * K * 128 * 2 + len(p) * K * 16, 2.0 * len(p) * K * K * 128, "bf16")}
 
 
 def phase_front_crosscheck(feats, pairs, cfg, dev) -> None:
@@ -1156,7 +1229,8 @@ def phase_front_end(dev, smi: str, profile: bool):
     tiles (K9, the leftovers K5), the first N_BUILD frames' window pairs
     with binary descriptors (plain Hamming matching); then the pair kernels
     against their plain versions and the card against the CPU.  Returns
-    (kernel stats, the launches of each kernel's path)."""
+    (kernel stats, the launches of each kernel's path, the N_BUILD frames
+    and their poses)."""
     from sfmx_torch.cli.config import PipelineConfig
     from sfmx_torch.kernels.tiles import pack_tiles
     from tests import smoke_scenes
@@ -1201,13 +1275,318 @@ def phase_front_end(dev, smi: str, profile: bool):
 
     stats = phase_pair_kernels(exh[0], exh[1], band[0], bp, mc.ratio, smi)
     k10 = phase_k10(exh[0], exh[1], dev, smi)
-    stats["match_pairs_top2"] = {k: k10[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    stats["match_pairs_top2"] = {k: v for k, v in k10.items() if k != "launches"}
     phase_front_crosscheck(exh[0], exh[1], cfg, dev)
     if profile:
         phase_front_profile(frames[:N_BUILD], exh[0], exh[1], exh_stages, cfg, dev, smi)
     return stats, {"match_pairs_fused": exh_launches.get("match_pairs_fused", 0),
                    "match_pairs_tiled": band_launches.get("match_pairs_tiled", 0),
-                   "match_pairs_top2": k10["launches"]}
+                   "match_pairs_top2": k10["launches"]}, frames[:N_BUILD], poses[:N_BUILD]
+
+
+# ---------------------------------------------------------------------------
+# Reconstruction: bundle adjustment on K6-K8, build_map, the closed loop
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, ref) -> float:
+    """Largest absolute difference over the reference's largest entry."""
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str) -> dict:
+    """K7, K6 and K8 against their plain versions on the dense layout of one
+    problem (tensors on the card under ``ba_solve``'s argument names), with
+    their times and bounds.  Observations past slot tp of a point are left
+    out of the layout on both sides."""
+    import torch
+
+    from sfmx_torch.kernels import segsum as sg
+    from sfmx_torch.solvers import schur
+
+    dev = prob["X"].device
+    C, P = prob["R"].shape[0], prob["X"].shape[0]
+    dense = sg.build_dense_obs(prob["pt_id"], prob["cam_id"], P, C, tp)
+    uvw = sg.pack_rows(dense, torch.cat([prob["uv"], prob["w_valid"][:, None]], 1))
+    cam19 = sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"], prob["t"])
+    x3 = prob["X"].T.contiguous()
+    n_dense = int(dense.cnt.sum())
+    out = {}
+
+    # K7
+    U, bc, v13, Wp = sg.ba_assemble_fused(cam19, dense, uvw, x3, delta)
+    rU, rbc, rv13, rWp = sg.ba_assemble_fused_plain(cam19, dense.camp, uvw, x3, delta)
+    torch.cuda.synchronize()
+    e7 = {"U": rel_err(U, rU), "V9": rel_err(v13[:9], rv13[:9]), "Wp": rel_err(Wp, rWp),
+          "b_c": rel_err(bc, rbc), "b_p": rel_err(v13[9:12], rv13[9:12]),
+          "cost": abs(float(v13[12].sum()) - float(rv13[12].sum())) / float(rv13[12].sum())}
+    abs7 = max(float((U - rU).abs().max()), float((Wp - rWp).abs().max()),
+               float((v13 - rv13).abs().max()), float((bc - rbc).abs().max()))
+    tol7 = KERNELS["ba_assemble_fused"][2]
+    ms7 = cuda_ms(lambda: sg.ba_assemble_fused(cam19, dense, uvw, x3, delta))
+    p7 = cuda_ms(lambda: sg.ba_assemble_fused_plain(cam19, dense.camp, uvw, x3, delta), reps=3, warm=1)
+    log(f"[BA kernels] {tag}: K7 ba_assemble_fused C={C} P={P} O={n_dense} tp={tp}: relative errors "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in e7.items()})} (tol {tol7:.0e} for U, V9, "
+        f"Wp, cost; 1e-3 for the near-cancelling b_c, b_p); max abs {abs7:.3e}; kernel "
+        f"{ms7:.3f} ms, plain {p7:.3f} ms on {smi}")
+    assert max(e7["U"], e7["V9"], e7["Wp"], e7["cost"]) <= tol7 and max(e7["b_c"], e7["b_p"]) <= 1e-3
+    # necessary work: uvw, camp, X and the camera table read, W, the point
+    # rows and the camera blocks written; ~350 FLOP per observation
+    out["ba_assemble_fused"] = {
+        "max_abs_err": abs7, "max_rel_err": max(e7.values()), "ms": ms7, "plain_ms": p7,
+        **bound(n_dense * (12 + 4 + 72) + P * (12 + 52) + C * (76 + 168), 350.0 * n_dense, "f32")}
+
+    # K6 on the system K7 assembled
+    vinv = schur._damp_inv3_rows(v13[:9], 1e-4).contiguous()
+    xv = torch.randn((6, C), generator=torch.Generator().manual_seed(1)).to(dev)
+    z, vy = sg.schur_cross_matvec(Wp, dense, vinv, xv)
+    rz, rvy = sg.schur_cross_matvec_plain(Wp, dense.camp, vinv, xv)
+    torch.cuda.synchronize()
+    e6 = max(rel_err(z, rz), rel_err(vy, rvy))
+    abs6 = max(float((z - rz).abs().max()), float((vy - rvy).abs().max()))
+    tol6 = KERNELS["schur_cross_matvec"][2]
+    ms6 = cuda_ms(lambda: sg.schur_cross_matvec(Wp, dense, vinv, xv), reps=21, warm=3)
+    p6 = cuda_ms(lambda: sg.schur_cross_matvec_plain(Wp, dense.camp, vinv, xv), reps=3, warm=1)
+    log(f"[BA kernels] {tag}: K6 schur_cross_matvec: relative error {e6:.3e} (tol {tol6:.0e}), max abs "
+        f"{abs6:.3e}; kernel {ms6:.4f} ms ({n_dense * 72 / ms6 / 1e6:.1f} GB/s of W), plain "
+        f"{p6:.3f} ms on {smi}")
+    assert e6 <= tol6, f"K6 relative error {e6}"
+    # necessary work: W and camp of the real observations, the point rows
+    # (Vinv in, vy out), x and z; 72 FLOP per observation
+    out["schur_cross_matvec"] = {
+        "max_abs_err": abs6, "max_rel_err": e6, "ms": ms6, "plain_ms": p6,
+        **bound(n_dense * (72 + 4) + P * (36 + 12) + C * 48, 72.0 * n_dense, "f32")}
+
+    # K8, the four trial steps of an LM iteration
+    nc = 4
+    cams = torch.cat([sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"],
+                                         prob["t"] + 0.01 * c) for c in range(nc)], 0)
+    xs = torch.cat([(prob["X"] + 0.005 * c).T for c in range(nc)], 0).contiguous()
+    got = sg.ba_cost_fused(cams, dense, uvw, xs, delta, nc=nc)
+    ref = sg.ba_cost_fused_plain(cams, dense.camp, uvw, xs, delta, nc)
+    torch.cuda.synchronize()
+    e8 = float(((got - ref).abs() / ref).max())
+    abs8 = float((got - ref).abs().max())
+    tol8 = KERNELS["ba_cost_fused"][2]
+    ms8 = cuda_ms(lambda: sg.ba_cost_fused(cams, dense, uvw, xs, delta, nc=nc))
+    p8 = cuda_ms(lambda: sg.ba_cost_fused_plain(cams, dense.camp, uvw, xs, delta, nc), reps=3, warm=1)
+    log(f"[BA kernels] {tag}: K8 ba_cost_fused nc={nc}: relative error {e8:.3e} (tol {tol8:.0e}), max "
+        f"abs {abs8:.3e} of costs {[float(f'{c:.4f}') for c in ref.tolist()]}; kernel {ms8:.3f} ms, "
+        f"plain {p8:.3f} ms on {smi}")
+    assert e8 <= tol8, f"K8 relative error {e8}"
+    out["ba_cost_fused"] = {
+        "max_abs_err": abs8, "max_rel_err": e8, "ms": ms8, "plain_ms": p8,
+        **bound(n_dense * (12 + 4) + nc * (P * 12 + C * 76 + 4), 60.0 * nc * n_dense, "f32")}
+
+    return out
+
+
+def phase_ba_kernels(dev, smi: str, profile: bool) -> None:
+    """K7, K6 and K8 against their plain versions on a random problem of
+    BA_SHAPE (camera-local visibility, tracks of ~10 views), their times,
+    the LM rate of the dense solve beside the planes path, and the same
+    dense solve twice."""
+    import torch
+
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.solvers import lm
+    from tests.smoke_scenes import ba_problem
+
+    C, P, O, tp = (BA_SHAPE[k] for k in ("C", "P", "O", "tp"))
+    cg, iters = BA_SHAPE["cg_iters"], BA_SHAPE["lm_iters"]
+    prob = {k: torch.as_tensor(v, device=dev)
+            for k, v in ba_problem(C, P, O, seed=0, window=16, perturb=0.03).items()}
+    lens = np.bincount(prob["pt_id"].cpu().numpy(), minlength=P)
+    assert lens.max() <= tp, f"tracks up to {lens.max()} views do not fit tp={tp}"
+    ba_kernel_checks("512 cameras", prob, tp, 4.0 / 500.0, smi)
+
+    # the LM rate of both paths, and the dense solve twice
+    def solve(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lm.ba_solve(*prob.values(), iters=iters, cg_iters=cg, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    dkw = dict(tp_cap=tp, dense_cg=True)
+    solve(**dkw)                                   # warm
+    _build.LAUNCHES.reset()
+    d1, wall_d = solve(**dkw)
+    counts = dict(_build.LAUNCHES.counts)
+    d2, _ = solve(**dkw)
+    solve()
+    pl, wall_p = solve()
+    same = all(torch.equal(a, b) for a, b in zip(d1, d2))
+    diff = max(float((a - b).abs().max()) for a, b in zip(d1, d2))
+    log(f"[BA solve] {iters} LM iterations x {cg} CG steps, C={C} P={P} O={O}: dense path "
+        f"(K6-K8) {iters / wall_d:.2f} LM iterations/s ({wall_d * 1e3:.1f} ms), planes path "
+        f"{iters / wall_p:.2f}/s ({wall_p * 1e3:.1f} ms); cost {float(d1[3][0]):.5f} -> "
+        f"{float(d1[3][-1]):.5f} (dense), -> {float(pl[3][-1]):.5f} (planes); launches "
+        f"{json.dumps(counts)}; on {smi}")
+    log(f"[BA solve] the same dense solve twice: bit-identical {same}, largest difference "
+        f"{diff:.3e}")
+    check_launches("BA solve", counts, {"ba_assemble_fused": 2 * iters,
+                                        "schur_cross_matvec": 2 * iters * (cg + 2),
+                                        "ba_cost_fused": iters + 1})
+    assert float(d1[3][-1]) < 0.5 * float(d1[3][0]), "the dense solve did not converge"
+    assert abs(float(d1[3][-1]) - float(pl[3][-1])) <= 0.02 * float(pl[3][-1]), \
+        "dense and planes solves end at different costs"
+    if profile:
+        ms_d, by_name, _table = device_ms_per_run(
+            lambda: lm.ba_solve(*prob.values(), iters=iters, cg_iters=cg, **dkw), 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[profile] BA dense solve: device {ms_d:.2f} ms of {wall_d * 1e3:.1f} ms wall (busy "
+            f"{ms_d / (wall_d * 1e3):.3f}); " + "; ".join(f"{t:.3f} ms {k[:50]}" for k, t in top)
+            + f"; on {smi}")
+
+
+def phase_build_map(frames, poses, dev, smi: str, profile: bool):
+    """The N_BUILD-frame exhaustive build through ``build_map``, then K6-K8
+    against their plain versions on the final BA's table (the built scene's
+    alive observations at the tp the build chose); returns (scene, feats,
+    tt, the similarity to the rendered world, launches, kernel stats)."""
+    import io
+
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import build_map
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.solvers import umeyama
+    from sfmx_torch.utils.logging import LOGGER
+
+    cfg = PipelineConfig()
+    cfg = dataclasses.replace(cfg, recon=dataclasses.replace(cfg.recon, max_components=1))
+    n = len(frames)
+    buf, old = io.StringIO(), LOGGER._stream
+    LOGGER._stream = buf
+    try:
+        with plain_matcher_calls() as plain:
+            torch.cuda.synchronize()
+            _build.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            scene, feats, tt, stats = build_map(
+                frames, INTR[None], np.zeros(n, np.int32), cfg, dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES.counts)
+    finally:
+        LOGGER._stream = old
+    stages = {r["stage"]: r for r in map(json.loads, buf.getvalue().splitlines())}
+    eyes = torch.as_tensor(np.stack([eye for _R, _t, eye in poses]), dtype=torch.float32,
+                           device=dev)
+    ate, sim = umeyama.ate_rmse(scene.centers, eyes, scene.cam_alive)
+    ate = float(ate)
+    n_reg, n_pts, n_obs = scene.counts()
+    log(f"[build_map] {n} frames: stage wall "
+        + ", ".join(f"{k} {r['wall_s']:.3f} s" for k, r in stages.items())
+        + f"; whole {wall:.3f} s; {n_reg}/{n} registered (gate {n}), {n_pts} points, {n_obs} "
+        f"alive observations of {tt.n_tracks} tracks; median reprojection "
+        f"{stats['final_med_px']:.4f} px (gate < {REPROJ_GATE_PX}); ATE {ate:.4f} m (gate < "
+        f"{ATE_GATE_M}; map scale {float(sim[0]):.4f} m per unit); seed pair {stats['init_pair']} "
+        f"at {stats['init_med_px']} px; {stats['n_rounds']} rounds; on {smi}")
+    log(f"[build_map] reconstruct phases {json.dumps(stats['phase_s'])}; BA calls by path "
+        f"{json.dumps(stats['ba_calls'])}, final {json.dumps(stats['ba_path'])}; "
+        f"{stats['ba_total_iters']} LM iterations in {stats['ba_total_s']} s = "
+        f"{stats['ba_iters_per_s']} iterations/s; calls [obs, iters, s] "
+        f"{json.dumps(stats['ba_call_s'])}; launches {json.dumps(launches)}; plain matcher "
+        f"calls {plain}")
+    assert "cuda" not in plain, "build_map: the plain matcher ran on the card"
+    assert n_reg == n, f"build_map: {n_reg}/{n} cameras registered"
+    assert stats["final_med_px"] < REPROJ_GATE_PX, f"build_map: {stats['final_med_px']} px"
+    assert np.isfinite(ate) and ate < ATE_GATE_M, f"build_map: ATE {ate} m"
+    assert stats["ba_path"]["mode"] == "dense", f"final BA on {stats['ba_path']}"
+    k6, k7, k8 = (launches.get(k, 0) for k in
+                  ("schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused"))
+    assert k6 > 0 and k7 > 0 and k8 > 0, f"build_map: BA kernel launches {launches}"
+    assert k6 == (cfg.recon.cg_iters + 2) * k7, f"build_map: K6 {k6} vs K7 {k7}"
+    assert k8 == k7 // 2 + stats["ba_calls"]["dense"], f"build_map: K8 {k8} vs K7 {k7}"
+    ext = extraction_launches()
+    assert all(launches.get(k, 0) == v for k, v in ext.items()), launches
+    assert launches.get("match_pairs_fused", 0) == 2, launches
+    if profile:
+        log(f"[profile] build_map: reconstruct {stages['reconstruct']['wall_s']:.2f} s of "
+            f"{wall:.2f} s, of which BA {stats['phase_s']['ba']} s; BA's device share is "
+            "profiled on the BA solve phase")
+    alive = scene.obs_alive
+    prob = dict(intr=scene.intr, k_idx=scene.cam_k, R=scene.cam_R, t=scene.cam_t, X=scene.X,
+                cam_id=scene.obs_cam[alive], pt_id=scene.obs_pt[alive], uv=scene.obs_uv[alive],
+                w_valid=torch.ones(int(alive.sum()), device=dev))
+    kstats = ba_kernel_checks(f"{n}-frame build", prob, stats["ba_path"]["tp"],
+                              cfg.recon.huber_px / FOCAL, smi)
+    return scene, feats, tt, sim, launches, kstats
+
+
+def phase_loop(tex, scene, feats, tt, sim, dev) -> None:
+    """The built map saved, loaded and served by the port's query side:
+    N_LOOP_QUERIES held-out frames (midpoints between build frames)
+    localized against it, their centers mapped to the rendered world by the
+    build's similarity."""
+    import tempfile
+
+    import torch
+
+    from examples import room
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.main import localize_images
+    from sfmx_torch.localize.localize import build_localization_map
+    from sfmx_torch.mapstore.scene import load_scene_np, save_scene
+    from sfmx_torch.solvers import umeyama
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_scene(Path(tmp) / "map", scene, extra={"source": "chip_smoke build_map"})
+        cols = {k: np.array(v) for k, v in load_scene_np(Path(tmp) / "map").items()}
+    for k, v in scene.to_numpy().items():
+        assert np.array_equal(cols[k], v), f"scene store round trip changed {k}"
+    lmap = build_localization_map(cols, feats.desc.cpu().numpy(), tt.obs_feat, dev,
+                                  kp_mask=feats.kp.mask.cpu().numpy(), n_words=64, seed=0)
+    mids = room.walk_poses(N_BAND - 1)[1::2]            # between the first pass's frames
+    pick = np.round(np.linspace(0, N_BUILD - 2, N_LOOP_QUERIES)).astype(int)
+    qposes = [mids[i] for i in pick]
+    frames = render(tex, qposes)
+    results = localize_images(frames, INTR, lmap, PipelineConfig(),
+                              generator=torch.Generator(device=dev).manual_seed(9))
+    centers = torch.as_tensor(np.stack([np.asarray(r["center"]) for r in results]),
+                              dtype=torch.float32, device=dev)
+    world = umeyama.apply_sim3(*sim, centers).cpu().numpy()
+    errs = np.array([np.linalg.norm(w - eye) for w, (_R, _t, eye) in zip(world, qposes)])
+    n_conf = sum(r["confidence"] > 0 for r in results)
+    log(f"[loop] map saved, loaded and served: {lmap.X.shape[0]} landmarks "
+        f"({int(lmap.lm_alive.sum())} alive), {lmap.kf_gdesc.shape[0]} keyframes; "
+        f"{N_LOOP_QUERIES} held-out frames: center errors "
+        f"{[float(f'{e:.4f}') for e in errs]} m, median {np.median(errs):.4f} m (gate < "
+        f"{MEDIAN_GATE_M}); {n_conf}/{N_LOOP_QUERIES} localized (gate >= {N_LOOP_MIN})")
+    assert np.isfinite(errs).all(), "loop: non-finite pose"
+    assert np.median(errs) < MEDIAN_GATE_M, f"loop: median center error {np.median(errs)} m"
+    assert n_conf >= N_LOOP_MIN, f"loop: only {n_conf} queries localized"
+
+
+def phase_ba_crosscheck(dev) -> None:
+    """One 8-camera dense ``ba_solve`` on the card (K6-K8, with overflow
+    observations chained in) against the plain path on the CPU: first cost
+    rtol 1e-4 (the residual's f32 cancellation), final cost within 2 %, R, t
+    and X within 2e-2 of a scene 25 units deep (LM amplifies rounding along
+    the free scale gauge)."""
+    import torch
+
+    from sfmx_torch.solvers import lm
+    from tests.smoke_scenes import ba_problem
+
+    prob = ba_problem(8, 300, 2000, seed=5, window=4, long_tracks=6, perturb=0.03)
+    lens = np.bincount(prob["pt_id"], minlength=300)
+    kw = dict(iters=8, cg_iters=25, tp_cap=8, dense_cg=True,
+              ov_cap=int(np.maximum(lens - 8, 0).sum()))
+    card = lm.ba_solve(*(torch.as_tensor(v, device=dev) for v in prob.values()), **kw)
+    cpu = lm.ba_solve(*(torch.as_tensor(v) for v in prob.values()), **kw)
+    c0, c1 = card[3].cpu(), cpu[3]
+    dmax = max(float((a.cpu() - b).abs().max()) for a, b in zip(card[:3], cpu[:3]))
+    log(f"[BA crosscheck] 8 cameras, {len(prob['pt_id'])} observations ({kw['ov_cap']} overflow): "
+        f"cost {float(c0[0]):.6f} -> {float(c0[-1]):.6f} on the card, {float(c1[0]):.6f} -> "
+        f"{float(c1[-1]):.6f} on the CPU; R, t, X max |diff| {dmax:.2e} (gate < 2e-2)")
+    assert abs(float(c0[0]) - float(c1[0])) <= 1e-4 * float(c1[0])
+    assert abs(float(c0[-1]) - float(c1[-1])) <= 0.02 * float(c1[-1])
+    assert float(c0[-1]) < 0.5 * float(c0[0]) and dmax < 2e-2
 
 
 def main() -> int:
@@ -1259,8 +1638,15 @@ def main() -> int:
         phase_profile({"extraction": s_extract, "streaming localization": s_localize},
                       s_wall, smi, "streaming", SERVE_BATCH)
 
-    front_stats, front_launches = phase_front_end(dev, smi, profile)
+    front_stats, front_launches, build_frames, build_poses = phase_front_end(dev, smi, profile)
     kstats.update(front_stats)
+
+    phase_ba_kernels(dev, smi, profile)
+    scene, b_feats, b_tt, sim, map_launches, ba_stats = phase_build_map(
+        build_frames, build_poses, dev, smi, profile)
+    kstats.update(ba_stats)
+    phase_loop(tex, scene, b_feats, b_tt, sim, dev)
+    phase_ba_crosscheck(dev)
 
     check_launches("gather path", launches, extraction_launches())
     log(f"[counters] serving-run launches {json.dumps(serve_launches)}")
@@ -1268,7 +1654,10 @@ def main() -> int:
         assert serve_launches.get(k, 0) > 0, f"{k} was not launched in the serving run"
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
 
-    path_launches = {**{k: serve_launches[k] for k in SERVE_KERNELS}, **front_launches}
+    log(f"[counters] build_map launches {json.dumps(map_launches)}")
+    path_launches = {**{k: serve_launches[k] for k in SERVE_KERNELS}, **front_launches,
+                     **{k: map_launches[k] for k in ("schur_cross_matvec", "ba_assemble_fused",
+                                                     "ba_cost_fused")}}
     kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
                 "launches": path_launches[k], **kstats[k]} for k in KERNELS]
     print(smi)

@@ -1,13 +1,11 @@
 """Typed config tree, overridable from key=value pairs and YAML
-(port of ``sfmx.cli.config``, same defaults).
-
-The reconstruction sub-config (``ReconConfig``) belongs to the map-build
-path, which is not ported yet, so ``PipelineConfig`` has no ``recon`` field.
-"""
+(port of ``sfmx.cli.config``, same defaults)."""
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+
+from ..recon.incremental import ReconConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +52,7 @@ class LocalizeConfig:
 class PipelineConfig:
     features: FeatureConfig = FeatureConfig()
     match: MatchConfig = MatchConfig()
+    recon: ReconConfig = ReconConfig()
     localize: LocalizeConfig = LocalizeConfig()
     resize_to: tuple | None = (640, 480)
     focal_factor: float = 1.2

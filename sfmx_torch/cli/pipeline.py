@@ -1,9 +1,9 @@
 """Batch pipeline (port of ``sfmx.cli.pipeline``): extraction dispatch and
-the map-build front end — pair selection, matching, E-RANSAC verification
-and tracks, with the content-addressed stage cache (a killed build re-runs
-only the stages it had not finished).  Only the AKAZE-analog extractor is
-ported; ``build_map``'s reconstruction stage, streaming extraction and
-image ingest are not ported yet.
+the map build — pair selection, matching, E-RANSAC verification, tracks and
+incremental reconstruction with bundle adjustment, the front-end stages
+behind the content-addressed stage cache (a killed build re-runs only the
+stages it had not finished).  Only the AKAZE-analog extractor is ported;
+streaming extraction and image ingest are not ported yet.
 """
 from __future__ import annotations
 
@@ -305,3 +305,34 @@ def build_front_end(images, intrinsics, cam_k, cfg: PipelineConfig, device, work
                                      n_images, cfg.features.max_keypoints)
         out["tracks"] = tt.n_tracks
     return feats, pairs, res, cnt, tt
+
+
+def build_map(images, intrinsics, cam_k, cfg: PipelineConfig, device, workdir=None, *,
+              feats: features.Features | None = None, stage_seed: str = "",
+              generator: torch.Generator | None = None):
+    """Full map build on ``device``; returns (scene, feats, track_table, stats).
+
+    The front end is ``build_front_end`` (same arguments); the
+    ``reconstruct`` stage then runs incremental SfM and bundle adjustment
+    over its tracks, seeded from ``cfg.recon.seed``.  Direct
+    (geometry-verified) per-pair match counts drive the initial-pair
+    selection: chained covisibility drifts.
+    """
+    from ..recon.incremental import reconstruct
+
+    feats, pairs, res, _cnt, tt = build_front_end(
+        images, intrinsics, cam_k, cfg, device, workdir, feats=feats, stage_seed=stage_seed,
+        generator=generator)
+    with LOGGER.scope("reconstruct") as out:
+        scene, stats = reconstruct(
+            feats.kp.uv.cpu().numpy(), feats.kp.mask.cpu().numpy(), tt,
+            np.asarray(intrinsics, np.float32), np.asarray(cam_k, np.int32), cfg.recon,
+            pair_counts=(pairs, res.valid.sum(dim=1).cpu().numpy()), device=device)
+        out.update({k: v for k, v in stats.items() if isinstance(v, (int, float))})
+        # which BA path carried this build, and its throughput
+        out["ba_path"] = stats.get("ba_path")
+        out["ba_calls"] = stats.get("ba_calls")
+        out["components"] = stats.get("components")
+        out["phase_s"] = stats.get("phase_s")
+        out["ba_call_s"] = stats.get("ba_call_s")
+    return scene, feats, tt, stats

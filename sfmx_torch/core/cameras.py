@@ -49,3 +49,14 @@ def pixel_to_normalized(k: torch.Tensor, uv: torch.Tensor,
     if undistort:
         return undistort_radial(k, xd)
     return xd
+
+
+def reprojection_residual(k, R, t, X, uv_obs):
+    """Pixel residual of X (...,3) seen by camera (k, R, t) against uv_obs
+    (...,2); k (...,7), R (...,3,3), t (...,3) carry the same leading dims
+    (one observation per row)."""
+    Xc = (R @ X[..., None])[..., 0] + t
+    z = Xc[..., 2]
+    zsafe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    xd = distort_radial(k, Xc[..., :2] / zsafe[..., None])
+    return xd * k[..., FX:FY + 1] + k[..., CX:CY + 1] - uv_obs

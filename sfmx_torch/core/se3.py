@@ -1,4 +1,5 @@
-"""SO(3)/SE(3) operations the PnP path needs (port of ``sfmx.core.se3``).
+"""SO(3)/SE(3) operations of the PnP, reconstruction and bundle-adjustment
+paths (port of ``sfmx.core.se3``).
 
 Conventions as in the reference: rotations are world-to-camera 3x3
 matrices ``R`` and ``X_cam = R @ X + t``; tangent updates act on the LEFT,
@@ -40,6 +41,27 @@ def perturb(R: torch.Tensor, t: torch.Tensor, delta: torch.Tensor):
     """Left-multiplicative local update: delta = (dw[3], dt[3])."""
     dR = so3_exp(delta[..., :3])
     return dR @ R, t + delta[..., 3:6]
+
+
+# Every function here takes leading batch dimensions, so the reference's
+# vmapped forms are the same functions.
+so3_exp_b = so3_exp
+perturb_b = perturb
+
+
+def compose(Ra, ta, Rb, tb):
+    """(Ra,ta) o (Rb,tb): apply b first, then a."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def apply(R, t, X):
+    """Transform world point(s) X (...,3) into the camera frame of one (R, t)."""
+    return X @ R.transpose(-1, -2) + t
 
 
 def det3(M: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Epipolar geometry on the geometric-verification path (port of the batched
-part of ``sfmx.solvers.epipolar``): the SVD-free weighted 8-point, the
-essential-structure projection and Sampson scoring.
+"""Epipolar geometry (port of ``sfmx.solvers.epipolar``): the SVD-free
+weighted 8-point, the essential-structure projection and Sampson scoring of
+the geometric-verification path, and the SVD 8-point, the decomposition of E
+and the relative pose of the reconstruction's two-view initializer.
 
 RANSAC hypothesis generation does not need SVD accuracy, so the null vector
 of each 8-point system comes from a damped Cholesky of the normal matrix
@@ -8,8 +9,8 @@ A^T W A plus inverse iteration, written as vector steps over a (B,9,9)
 batch: a few hundred small ops for the whole batch, no linalg call.  The
 squared conditioning costs ~3 f32 digits against a direct SVD; winners are
 re-fit with the weighted variant and get the (s,s,0) structure once per
-pair.  ``eight_point``, ``decompose_essential`` and the relative-pose
-helpers belong to the reconstruction path and are not ported yet.
+pair.  The two-view initializer scores few pairs and keeps the reference's
+direct SVD of A (``eight_point``).
 """
 from __future__ import annotations
 
@@ -125,3 +126,89 @@ def sampson_error_batch(F: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> 
 def sampson_error(F: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """First-order geometric (Sampson) distance of one F (3,3), (N,)."""
     return sampson_error_batch(F, x1, x2)
+
+
+# ---------------------------------------------------------------------------
+# Two-view initialization (the reconstruction path)
+# ---------------------------------------------------------------------------
+
+
+def _hartley_normalize(x: torch.Tensor, mask: torch.Tensor):
+    """Similarity-normalize (...,N,2) points to zero mean and sqrt(2) RMS
+    radius over the masked rows; returns (points, T (...,3,3))."""
+    w = mask.to(x.dtype)[..., None]
+    n = torch.clamp(torch.sum(w, dim=(-2, -1)), min=1.0)
+    mu = torch.sum(x * w, dim=-2) / n[..., None]
+    xc = (x - mu[..., None, :]) * w
+    rms = torch.sqrt(torch.sum(xc * xc, dim=(-2, -1)) / n)
+    s = (2.0 ** 0.5) / torch.clamp(rms, min=1e-12)
+    T = torch.zeros((*x.shape[:-2], 3, 3), dtype=x.dtype, device=x.device)
+    T[..., 0, 0] = s
+    T[..., 1, 1] = s
+    T[..., 0, 2] = -s * mu[..., 0]
+    T[..., 1, 2] = -s * mu[..., 1]
+    T[..., 2, 2] = 1.0
+    return (x - mu[..., None, :]) * s[..., None, None], T
+
+
+def eight_point(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor,
+                essential: bool = False) -> torch.Tensor:
+    """Normalized 8-point by direct SVD: x1, x2 (...,N,2), mask (...,N) ->
+    (...,3,3) M with x2^T M x1 = 0, of unit Frobenius norm.  ``essential``
+    enforces the (s,s,0) singular structure, else rank 2.  A degenerate
+    sample (non-finite system) gives the zero matrix, which Sampson scoring
+    rejects."""
+    x1n, T1 = _hartley_normalize(x1, mask)
+    x2n, T2 = _hartley_normalize(x2, mask)
+    u1, v1 = x1n[..., 0], x1n[..., 1]
+    u2, v2 = x2n[..., 0], x2n[..., 1]
+    A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1,
+                     torch.ones_like(u1)], dim=-1)
+    A = A * mask.to(A.dtype)[..., None]
+    bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
+    A = torch.where(bad[..., None, None], 0.0, A)
+    if A.shape[-2] < 9:                                    # full_matrices: 9 right vectors
+        A = torch.cat([A, A.new_zeros((*A.shape[:-2], 9 - A.shape[-2], 9))], dim=-2)
+    _, _, Vt = torch.linalg.svd(A, full_matrices=False)
+    F = Vt[..., 8, :].reshape(*A.shape[:-2], 3, 3)
+    F = T2.transpose(-1, -2) @ F @ T1
+    # structure enforcement after denormalization: the Hartley similarities
+    # do not commute with the singular-value structure
+    U, D, Vt = torch.linalg.svd(torch.where(torch.isfinite(F), F, 0.0))
+    if essential:
+        s = 0.5 * (D[..., 0] + D[..., 1])
+        D = torch.stack([s, s, torch.zeros_like(s)], dim=-1)
+    else:
+        D = torch.cat([D[..., :2], torch.zeros_like(D[..., :1])], dim=-1)
+    F = (U * D[..., None, :]) @ Vt
+    F = F / torch.clamp(torch.linalg.matrix_norm(F), min=1e-12)[..., None, None]
+    return torch.where(bad[..., None, None], 0.0, F)
+
+
+def decompose_essential(E: torch.Tensor):
+    """E (3,3) -> the 4 candidate (R (4,3,3), t (4,3)) with ||t|| = 1."""
+    U, _, Vt = torch.linalg.svd(E)
+    U = U * torch.sign(torch.linalg.det(U))
+    Vt = Vt * torch.sign(torch.linalg.det(Vt))
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    Ra = U @ W @ Vt
+    Rb = U @ W.T @ Vt
+    t = U[:, 2]
+    return torch.stack([Ra, Ra, Rb, Rb]), torch.stack([t, -t, t, -t])
+
+
+def relative_pose_from_essential(E: torch.Tensor, xn1: torch.Tensor, xn2: torch.Tensor,
+                                 mask: torch.Tensor):
+    """The (R, t) among E's 4 decompositions with the most points in front
+    of both cameras.  Camera 1 is the identity; returns world-to-camera-2
+    (R, t) with unit baseline, the winning count and the (N,3) points."""
+    from .triangulate import triangulate_two_view
+
+    Rs, ts = decompose_essential(E)
+    X, ok = triangulate_two_view(torch.eye(3, dtype=E.dtype, device=E.device),
+                                 torch.zeros(3, dtype=E.dtype, device=E.device),
+                                 Rs, ts, xn1, xn2)                  # (4,N,3), (4,N)
+    counts = torch.sum((ok & mask).to(torch.int32), dim=-1)
+    best = torch.argmax(counts)
+    return Rs[best], ts[best], counts[best], X[best]

@@ -198,3 +198,53 @@ def pair_near_ties(descs, masks, pairs, ratio: float, tol: float = 1e-5):
         out.append(((v[..., 0] - v[..., 1] < tol) | (col_gap < tol)
                     | ((d1 - ratio * ratio * d2).abs() < 4 * tol)) & masks[a])
     return torch.cat(out) if out else torch.zeros((0, K), dtype=torch.bool)
+
+
+def ba_problem(C: int, P: int, O: int, seed: int = 0, *, window: int = 6,
+               noise_px: float = 0.3, perturb: float = 0.0, long_tracks: int = 0) -> dict:
+    """A random bundle-adjustment problem with camera-local visibility (what
+    incremental SfM produces): cameras near the origin with small random
+    rotations look down +z at points 25 units away; point p is seen by
+    cameras of a sliding window of ``window`` ids.  The last 3 points and the
+    last camera get no observation; ``long_tracks`` points are seen by up to
+    4*window cameras (tracks longer than a small slot count).  ``perturb``
+    moves t and X off the truth (the state a solve starts from).  Returns
+    numpy arrays under the argument names of ``ba_solve``; the table is
+    sorted by point."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-10, 10, (P, 3)).astype(np.float32)
+    t = np.concatenate([rng.uniform(-2, 2, (C, 2)), np.full((C, 1), 25.0)], 1).astype(np.float32)
+    w = 0.05 * rng.standard_normal((C, 3))
+    th = np.linalg.norm(w, axis=1, keepdims=True)
+    k = w / th
+    Kx = np.zeros((C, 3, 3))
+    Kx[:, 0, 1], Kx[:, 0, 2], Kx[:, 1, 0] = -k[:, 2], k[:, 1], k[:, 2]
+    Kx[:, 1, 2], Kx[:, 2, 0], Kx[:, 2, 1] = -k[:, 0], -k[:, 1], k[:, 0]
+    R = (np.eye(3) + np.sin(th)[..., None] * Kx
+         + (1 - np.cos(th))[..., None] * (Kx @ Kx)).astype(np.float32)
+    pt_id = rng.integers(0, max(P - 3, 1), O)
+    width = np.full(O, window)
+    if long_tracks:
+        longs = rng.choice(max(P - 3, 1), long_tracks, replace=False)
+        extra = np.repeat(longs, 4 * window)
+        pt_id = np.concatenate([pt_id, extra])
+        width = np.concatenate([width, np.full(len(extra), 4 * window)])
+    span = np.maximum(C - 1 - width, 1)
+    cam_id = (pt_id / P * span).astype(np.int64) + rng.integers(0, width)
+    cam_id = np.minimum(cam_id, C - 2)
+    order = np.argsort(pt_id, kind="stable")
+    pt_id, cam_id = pt_id[order].astype(np.int32), cam_id[order].astype(np.int32)
+    intr = np.array([[500.0, 500.0, 320.0, 240.0, 0.0, 0.01, 0.0]], np.float32)
+    Xc = np.einsum("oij,oj->oi", R[cam_id], X[pt_id]) + t[cam_id]
+    xn = Xc[:, :2] / Xc[:, 2:3]
+    r2 = np.sum(xn * xn, axis=1, keepdims=True)
+    uv = (xn * (1.0 + 0.01 * r2 * r2) * 500.0 + np.array([320.0, 240.0])
+          + noise_px * rng.standard_normal((len(pt_id), 2))).astype(np.float32)
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    if perturb:
+        t = (t + perturb * rng.standard_normal((C, 3))).astype(np.float32)
+        X = (X + perturb * rng.standard_normal((P, 3))).astype(np.float32)
+    return dict(intr=intr, k_idx=np.zeros(C, np.int32), R=R, t=t, X=X, cam_id=cam_id,
+                pt_id=pt_id, uv=uv, w_valid=np.ones(len(pt_id), np.float32),
+                fixed_cam_mask=fixed)

@@ -1,5 +1,4 @@
-"""sfmx_torch CUDA kernels K1-K5, K9 and K10 against their plain PyTorch
-versions.
+"""sfmx_torch CUDA kernels K1-K10 against their plain PyTorch versions.
 
 These need a card and skip without one.  The file imports neither jax nor
 sfmx, so it also runs where only the port is installed:
@@ -17,8 +16,10 @@ from sfmx_torch.kernels import match as mt
 from sfmx_torch.kernels import matching as mm
 from sfmx_torch.kernels import pairs as mp
 from sfmx_torch.kernels import scale_space as ss
+from sfmx_torch.kernels import segsum as sg
 from sfmx_torch.kernels import tiles as mtl
-from tests.smoke_scenes import pair_near_ties
+from sfmx_torch.solvers import lm, schur
+from tests.smoke_scenes import ba_problem, pair_near_ties
 
 torch.set_num_threads(2)
 CFG = F.ScaleSpaceConfig()
@@ -309,3 +310,146 @@ def test_auto_dispatch_never_runs_plain_on_card(cuda, monkeypatch):
                                   np.array([[0, 1]], np.int32))
     with pytest.raises(AssertionError):
         mm.match_pairs_float_auto(d, m, pairs, kernel="dense")
+
+
+# ---------------------------------------------------------------------------
+# K6-K8: the fused bundle-adjustment kernels
+# ---------------------------------------------------------------------------
+
+# (C, P, O, tp_cap, long tracks): P not a multiple of the 128-point block,
+# the last camera and the last 3 points without observations, and with
+# long tracks more observations than slots (overflow left out of the layout)
+BA_SHAPES = [(24, 600, 4000, 32, 0), (37, 1001, 5000, 4, 8), (5, 131, 300, 8, 0)]
+
+
+def _ba_case(dev, C, P, O, tp, longs, delta=1.0 / 500.0):
+    """A problem on ``dev`` with its layout and packed observations."""
+    p = {k: torch.as_tensor(v, device=dev) for k, v in
+         ba_problem(C, P, O, seed=C, long_tracks=longs, perturb=0.01).items()}
+    d = sg.build_dense_obs(p["pt_id"], p["cam_id"], P, C, tp)
+    uvw = sg.pack_rows(d, torch.cat([p["uv"], p["w_valid"][:, None]], 1))
+    cam19 = sg.build_cam_table(p["intr"], p["k_idx"], p["R"], p["t"])
+    return p, d, uvw, cam19, p["X"].T.contiguous(), delta
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / (b.abs().max() + 1e-20))
+
+
+@pytest.mark.parametrize("shape", BA_SHAPES)
+def test_k7_ba_assemble_matches_plain(cuda, shape):
+    """U, V9, Wp within 1e-4 of the largest entry (the residual is a
+    difference of pixel coordinates ~300 that leaves ~0.3, so an FMA
+    contracted otherwise moves it by ~3e-5 relative, and a Huber weight
+    delta/|r| repeats that), b_c and b_p within 1e-3 (near-cancelling sums
+    on top), cost rtol 1e-4; two launches counted; a camera without
+    observations gets zero blocks."""
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *shape)
+    before = _build.LAUNCHES.get("ba_assemble_fused")
+    U, bc, v13, Wp = sg.ba_assemble_fused(cam19, d, uvw, x3, delta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("ba_assemble_fused") == before + 2
+    rU, rbc, rv13, rWp = sg.ba_assemble_fused_plain(cam19, d.camp, uvw, x3, delta)
+    assert _rel(U, rU) < 1e-4 and _rel(v13[:9], rv13[:9]) < 1e-4 and _rel(Wp, rWp) < 1e-4
+    assert _rel(bc, rbc) < 1e-3 and _rel(v13[9:12], rv13[9:12]) < 1e-3
+    assert abs(float(v13[12].sum()) - float(rv13[12].sum())) <= 1e-4 * float(rv13[12].sum())
+    assert torch.equal(U, U.transpose(1, 2))
+    assert float(U[-1].abs().max()) == 0.0 and float(bc[-1].abs().max()) == 0.0
+    assert float(v13[:, -3:].abs().max()) == 0.0 and torch.isfinite(Wp).all()
+
+
+@pytest.mark.parametrize("shape", BA_SHAPES)
+@pytest.mark.parametrize("use", ["matvec", "rhs", "backsub"])
+def test_k6_schur_matvec_matches_plain(cuda, shape, use):
+    """The kernel's three uses on a system K7 assembled: z and vy within
+    rtol 1e-4 plus 1e-4 of the largest entry (f32 sums of up to tp*6
+    products in another order); twice the same bits."""
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *shape)
+    C, P = shape[0], shape[1]
+    U, bc, v13, Wp = sg.ba_assemble_fused(cam19, d, uvw, x3, delta)
+    vinv = schur._damp_inv3_rows(v13[:9], 1e-3).contiguous()
+    bp = v13[9:12].contiguous()
+    x = torch.randn((6, C), generator=torch.Generator().manual_seed(1)).to(cuda)
+    x6, bias = {"matvec": (x, None), "rhs": (torch.zeros_like(x), bp), "backsub": (x, -bp)}[use]
+    before = _build.LAUNCHES.get("schur_cross_matvec")
+    z, vy = sg.schur_cross_matvec(Wp, d, vinv, x6, bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("schur_cross_matvec") == before + 2
+    rz, rvy = sg.schur_cross_matvec_plain(Wp, d.camp, vinv, x6, bias)
+    for got, ref in ((z, rz), (vy, rvy)):
+        assert bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-4 * ref.abs().max()).all())
+    z2, vy2 = sg.schur_cross_matvec(Wp, d, vinv, x6, bias)
+    assert torch.equal(z, z2) and torch.equal(vy, vy2)
+    assert float(z[:, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", BA_SHAPES)
+@pytest.mark.parametrize("nc", [1, 4])
+def test_k8_ba_cost_matches_plain(cuda, shape, nc):
+    """nc stacked candidates: rtol 1e-4 against the plain version (the
+    residual's cancellation, see K7), and the first candidate equal to K7's
+    cost to 1e-6 (one shared projection)."""
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *shape)
+    cams = torch.cat([sg.build_cam_table(p["intr"], p["k_idx"], p["R"], p["t"] + 0.01 * c)
+                      for c in range(nc)], 0)
+    xs = torch.cat([(p["X"] + 0.005 * c).T for c in range(nc)], 0).contiguous()
+    before = _build.LAUNCHES.get("ba_cost_fused")
+    got = sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=nc)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("ba_cost_fused") == before + 1
+    ref = sg.ba_cost_fused_plain(cams, d.camp, uvw, xs, delta, nc)
+    assert torch.allclose(got, ref, rtol=1e-4, atol=0.0)
+    c7 = float(sg.ba_assemble_fused(cam19, d, uvw, x3, delta)[2][12].sum())
+    assert abs(float(got[0]) - c7) <= 1e-6 * c7
+
+
+def test_ba_wrappers_reject_bad_inputs(cuda):
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *BA_SHAPES[0])
+    with pytest.raises(ValueError):
+        sg.ba_assemble_fused(cam19.cpu(), d, uvw, x3, delta)          # mixed devices
+    with pytest.raises(ValueError):
+        sg.ba_assemble_fused(cam19, d, uvw, x3[:, :-1].contiguous(), delta)
+    with pytest.raises(ValueError):
+        sg.ba_cost_fused(cam19.double(), d, uvw, x3, delta, nc=1)
+    with pytest.raises(ValueError):
+        sg.ba_cost_fused(cam19.repeat(17, 1), d, uvw, x3.repeat(17, 1), delta, nc=17)
+    with pytest.raises(ValueError):
+        sg.schur_cross_matvec(torch.zeros((32 * 18, 600), device=cuda), d,
+                              torch.zeros((9, 600), device=cuda).T, torch.zeros((6, 24), device=cuda))
+
+
+@pytest.mark.parametrize("path", ["planes", "dense", "dense-overflow"])
+def test_ba_solve_on_card_matches_cpu(cuda, path):
+    """One solve on the card (K6-K8 on the dense paths) against the plain
+    path on the CPU: first cost rtol 1e-4, final cost within 2 %, poses and
+    points within 2e-2 of a scene 25 units deep (LM amplifies summation-order
+    differences along the free scale gauge, which only damping holds: the
+    planes path, all PyTorch, moves by 1.5e-3 between the card and the CPU);
+    the dense solve
+    launches K7 once, K6 cg_iters+2 times and K8 once per LM iteration, plus
+    K8 once for the first cost."""
+    C, P, O, tp, longs = BA_SHAPES[1]
+    prob = ba_problem(C, P, O, seed=3, long_tracks=longs, perturb=0.03)
+    lens = np.bincount(prob["pt_id"], minlength=P)
+    kw = {"planes": {}, "dense": dict(tp_cap=int(lens.max()), dense_cg=True),
+          "dense-overflow": dict(tp_cap=tp, dense_cg=True,
+                                 ov_cap=int(np.maximum(lens - tp, 0).sum()))}[path]
+    iters, cg = 6, 20
+    _build.LAUNCHES.reset()
+    out = lm.ba_solve(*(torch.as_tensor(v, device=cuda) for v in prob.values()),
+                      iters=iters, cg_iters=cg, **kw)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES.counts)
+    ref = lm.ba_solve(*(torch.as_tensor(v) for v in prob.values()), iters=iters, cg_iters=cg, **kw)
+    if path == "planes":
+        assert counts == {}
+    else:
+        assert counts == {"ba_assemble_fused": 2 * iters,
+                          "schur_cross_matvec": 2 * iters * (cg + 2),
+                          "ba_cost_fused": iters + 1}
+    cc, cr = out[3].cpu(), ref[3]
+    assert abs(float(cc[0]) - float(cr[0])) <= 1e-4 * float(cr[0])
+    assert abs(float(cc[-1]) - float(cr[-1])) <= 0.02 * float(cr[-1])
+    assert float(cc[-1]) < 0.2 * float(cc[0])
+    for a, b in zip(out[:3], ref[:3]):
+        assert float((a.cpu() - b).abs().max()) < 2e-2

@@ -8,7 +8,11 @@ reference's own per-chunk Gumbel draws injected, inlier masks equal except
 where a match's squared Sampson error lies within 1% of the threshold (the
 two sides' 9x9 Cholesky and 3x3 SVD round differently there), counts
 within the number of such matches; the slice's corrupted-track count and
-kept pairs within 2 of the reference's.
+kept pairs within 2 of the reference's.  ``build_map`` on the same case:
+every camera registered, ATE < 0.1 and the reference's scene within 0.05
+after a similarity alignment (the two draw different RANSAC samples; the
+gates of tests/test_recon_e2e.py); scene stores exchanged with ``sfmx``
+compare column by column, exactly.
 """
 import dataclasses
 import pickle
@@ -309,3 +313,108 @@ def test_build_front_end_logs_and_caches(rng, tmp_path):
     np.testing.assert_array_equal(p1, p2)
     assert torch.equal(r1.valid, r2.valid) and torch.equal(c1, c2)
     assert tt1.n_tracks == tt2.n_tracks > 0
+
+
+def _capture(fn):
+    import io
+
+    buf, old = io.StringIO(), LOGGER._stream
+    LOGGER._stream = buf
+    try:
+        return fn(), buf.getvalue()
+    finally:
+        LOGGER._stream = old
+
+
+@pytest.fixture(scope="module")
+def built_map(tmp_path_factory):
+    """``build_map`` twice over precomputed features with a stage cache."""
+    rng = np.random.default_rng(0)
+    sc, jfeats, _, intr, cam_k = _repetitive_case(rng)
+    cfg = load_config(None, ["features.max_keypoints=160", "recon.ransac_hypotheses=128",
+                             "recon.max_components=1"])
+    workdir = tmp_path_factory.mktemp("build")
+    run = lambda: tp.build_map(None, intr, cam_k, cfg, "cpu", workdir, feats=_port_feats(jfeats),
+                               stage_seed="repetitive",
+                               generator=torch.Generator().manual_seed(0))
+    return sc, jfeats, intr, cam_k, _capture(run), _capture(run)
+
+
+def test_build_map_registers_and_logs(built_map):
+    import json
+
+    from sfmx_torch.solvers import umeyama as tum
+
+    sc, jfeats, intr, cam_k, ((scene, feats, tt, stats), log1), ((scene2, _, tt2, stats2), log2) = \
+        built_map
+    C = len(cam_k)
+    assert stats["n_registered"] == C and stats["final_med_px"] < 1.0
+    rmse, _ = tum.ate_rmse(scene.centers, torch.from_numpy(sc.centers.astype(np.float32)),
+                           scene.cam_alive)
+    assert float(rmse) < 0.1
+    rec = [json.loads(l) for l in log1.splitlines() if '"stage": "reconstruct"' in l]
+    assert len(rec) == 1
+    for key in ("ba_path", "ba_calls", "components", "phase_s", "ba_call_s", "n_registered",
+                "n_points", "final_med_px", "ba_iters_per_s", "wall_s"):
+        assert key in rec[0], key
+    assert "ba_fallbacks" not in rec[0]
+    assert rec[0]["ba_path"]["mode"] == "planes" and rec[0]["components"][0]["registered"] == C
+    # the second run takes match and verify from the cache and rebuilds the
+    # same map (the reconstruction is seeded from cfg.recon.seed)
+    assert log2.count('"cached": true') == 2 and tt2.n_tracks == tt.n_tracks
+    assert stats2["n_registered"] == C
+    assert torch.equal(scene2.cam_R, scene.cam_R) and torch.equal(scene2.X, scene.X)
+
+
+def test_build_map_matches_reference(built_map):
+    from sfmx.recon.incremental import reconstruct as jreconstruct
+    from sfmx_torch.solvers import umeyama as tum
+
+    sc, jfeats, intr, cam_k, ((scene, feats, tt, stats), _), _ = built_map
+    jcfg = jload_config(None, ["features.max_keypoints=160", "recon.ransac_hypotheses=128",
+                               "recon.max_components=1"])
+    jtt = jtracks.TrackTable(tt.obs_cam, tt.obs_feat, tt.obs_track, tt.n_tracks)
+    jscene, jstats = jreconstruct(np.asarray(jfeats.kp.uv), np.asarray(jfeats.kp.mask), jtt, intr,
+                                  cam_k, jcfg.recon)
+    assert jstats["n_registered"] == stats["n_registered"]
+    rmse, _ = tum.ate_rmse(scene.centers, torch.from_numpy(np.asarray(jscene.centers)),
+                           scene.cam_alive)
+    assert float(rmse) < 0.05
+    assert abs(jstats["final_med_px"] - stats["final_med_px"]) < 0.1
+
+
+def test_scene_store_round_trips_with_reference(built_map, tmp_path):
+    from sfmx.mapstore import scene as jscene_mod
+    from sfmx_torch.mapstore import scene as tscene_mod
+
+    scene = built_map[4][0][0]
+    tscene_mod.save_scene(tmp_path / "port_map", scene, extra={"note": "port"})
+    js = jscene_mod.load_scene(tmp_path / "port_map")
+    for f in dataclasses.fields(tscene_mod.Scene):
+        a, b = getattr(scene, f.name).numpy(), np.asarray(getattr(js, f.name))
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert jscene_mod.load_manifest(tmp_path / "port_map")["extra"] == {"note": "port"}
+    assert [f.name for f in dataclasses.fields(tscene_mod.Scene)] == \
+        [f.name for f in dataclasses.fields(jscene_mod.Scene)] == list(tscene_mod.SCENE_FIELDS)
+    # and the reverse: a store sfmx wrote
+    jscene_mod.save_scene(tmp_path / "ref_map", js, extra={"note": "ref"})
+    back = tscene_mod.load_scene(tmp_path / "ref_map")
+    for f in dataclasses.fields(tscene_mod.Scene):
+        assert torch.equal(getattr(back, f.name), getattr(scene, f.name)), f.name
+    cols = tscene_mod.load_scene_np(tmp_path / "port_map")
+    np.testing.assert_array_equal(cols["cam_R"], scene.cam_R.numpy())
+    # saving over an existing store works, and an empty scene has the reference's shapes
+    tscene_mod.save_scene(tmp_path / "port_map", back)
+    new = tscene_mod.new_scene(4, 10, 20, np.asarray(js.intr))
+    jnew = jscene_mod.new_scene(4, 10, 20, js.intr)
+    for f in dataclasses.fields(tscene_mod.Scene):
+        np.testing.assert_array_equal(getattr(new, f.name).numpy(), np.asarray(getattr(jnew, f.name)))
+    assert new.capacities == (4, 10, 20) and new.counts() == (0, 0, 0)
+    np.testing.assert_allclose(scene.centers.numpy(), np.asarray(js.centers), atol=1e-6)
+
+
+def test_pipeline_config_recon_equals_reference():
+    assert dataclasses.asdict(load_config(None, []).recon) == dataclasses.asdict(
+        jload_config(None, []).recon)
+    assert load_config(None, ["recon.dense_ba=off"]).recon.dense_ba == "off"
