@@ -3,6 +3,8 @@
 front-end and reconstruction paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
+(``python3 chip_smoke.py --tune`` runs instead the sweeps behind K1's tile
+and fused-step constants and K6's slot groups, and prints no result lines.)
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
@@ -79,8 +81,8 @@ Phases (each asserts; any failure exits non-zero):
                   and busy share per stage
  16. counters   — launches of the gather path's run against the count it
                   implies, of the serving run (K1-K4 all > 0), and of each
-                  front-end build (K1-K3 per extraction call; K5 and K9 two
-                  per wrapper call)
+                  front-end build (K1-K3 per extraction call, K1 one per
+                  chunk of fused FED steps; K5 and K9 two per wrapper call)
  17. BA kernels — a random bundle-adjustment problem of 512 cameras, 20,000
                   points and 200,000 observations (tp = 32 slots per point,
                   30 CG steps): K7, K6 and K8 against their plain versions
@@ -1203,17 +1205,18 @@ def phase_front_profile(images, feats, pairs, stages: dict, cfg, dev, smi: str) 
 
 def extraction_launches() -> dict:
     """Launches of one extraction call (a chunk of 16 queries, or a whole
-    build) through 2 octaves: per octave, K1 one per FED step of its 4
-    level segments, K2 two (gradients, then the determinant of all levels),
-    K3 one."""
+    build) through 2 octaves: per octave, K1 one per chunk of fused FED
+    steps of its 4 level segments, K2 two (gradients, then the determinant
+    of all levels), K3 one."""
     from sfmx_torch.cli.config import PipelineConfig
     from sfmx_torch.kernels import features as F
+    from sfmx_torch.kernels import scale_space as ss
 
     fcfg = PipelineConfig().features
     n_oct = fcfg.n_octaves
-    n_steps = sum(len(taus) for taus in F.level_taus(
+    n_k1 = sum(len(ss.fused_chunks(taus)) for taus in F.level_taus(
         F.ScaleSpaceConfig(sigma_levels=tuple(fcfg.sigma_levels))))
-    return {"diffuse_segment": n_steps * n_oct, "response_levels": 2 * n_oct,
+    return {"diffuse_segment": n_k1 * n_oct, "response_levels": 2 * n_oct,
             "describe_upright": n_oct}
 
 
@@ -1294,10 +1297,12 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
 
 
-def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str) -> dict:
+def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str,
+                     profile: bool = False) -> dict:
     """K7, K6 and K8 against their plain versions on the dense layout of one
     problem (tensors on the card under ``ba_solve``'s argument names), with
-    their times and bounds.  Observations past slot tp of a point are left
+    their times and bounds; with ``profile`` also K6's device time per call
+    apart from its call time.  Observations past slot tp of a point are left
     out of the layout on both sides."""
     import torch
 
@@ -1336,20 +1341,30 @@ def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str) -> d
         "max_abs_err": abs7, "max_rel_err": max(e7.values()), "ms": ms7, "plain_ms": p7,
         **bound(n_dense * (12 + 4 + 72) + P * (12 + 52) + C * (76 + 168), 350.0 * n_dense, "f32")}
 
-    # K6 on the system K7 assembled
+    # K6 on the system K7 assembled, bound once as the PCG loop binds it
     vinv = schur._damp_inv3_rows(v13[:9], 1e-4).contiguous()
     xv = torch.randn((6, C), generator=torch.Generator().manual_seed(1)).to(dev)
-    z, vy = sg.schur_cross_matvec(Wp, dense, vinv, xv)
+    cross = sg.SchurMatvec(Wp, dense, vinv)
+    z, vy = cross(xv)
     rz, rvy = sg.schur_cross_matvec_plain(Wp, dense.camp, vinv, xv)
     torch.cuda.synchronize()
     e6 = max(rel_err(z, rz), rel_err(vy, rvy))
     abs6 = max(float((z - rz).abs().max()), float((vy - rvy).abs().max()))
     tol6 = KERNELS["schur_cross_matvec"][2]
-    ms6 = cuda_ms(lambda: sg.schur_cross_matvec(Wp, dense, vinv, xv), reps=21, warm=3)
+    ms6 = cuda_ms(lambda: cross(xv), reps=21, warm=3)
+    ms6_once = cuda_ms(lambda: sg.schur_cross_matvec(Wp, dense, vinv, xv), reps=21, warm=3)
     p6 = cuda_ms(lambda: sg.schur_cross_matvec_plain(Wp, dense.camp, vinv, xv), reps=3, warm=1)
+    dev6 = ""
+    if profile:
+        # the event pair around one call times the wrapper's host gaps too
+        ms_dev, by_name, _table = device_ms_per_run(lambda: cross(xv), 20)
+        dev6 = (f"; device {ms_dev:.4f} ms per call by torch.profiler ("
+                + ", ".join(f"{t:.4f} {k.replace('(anonymous namespace)::', '').split('(')[0]}"
+                            for k, t in by_name.items()) + ")")
     log(f"[BA kernels] {tag}: K6 schur_cross_matvec: relative error {e6:.3e} (tol {tol6:.0e}), max abs "
-        f"{abs6:.3e}; kernel {ms6:.4f} ms ({n_dense * 72 / ms6 / 1e6:.1f} GB/s of W), plain "
-        f"{p6:.3f} ms on {smi}")
+        f"{abs6:.3e}; kernel {ms6:.4f} ms by CUDA events around one call of the bound system "
+        f"({n_dense * 72 / ms6 / 1e6:.1f} GB/s of W; {ms6_once:.4f} ms through the one-shot wrapper, "
+        f"which checks the system each time){dev6}; plain {p6:.3f} ms on {smi}")
     assert e6 <= tol6, f"K6 relative error {e6}"
     # necessary work: W and camp of the real observations, the point rows
     # (Vinv in, vy out), x and z; 72 FLOP per observation
@@ -1398,7 +1413,7 @@ def phase_ba_kernels(dev, smi: str, profile: bool) -> None:
             for k, v in ba_problem(C, P, O, seed=0, window=16, perturb=0.03).items()}
     lens = np.bincount(prob["pt_id"].cpu().numpy(), minlength=P)
     assert lens.max() <= tp, f"tracks up to {lens.max()} views do not fit tp={tp}"
-    ba_kernel_checks("512 cameras", prob, tp, 4.0 / 500.0, smi)
+    ba_kernel_checks("512 cameras", prob, tp, 4.0 / 500.0, smi, profile)
 
     # the LM rate of both paths, and the dense solve twice
     def solve(**kw):
@@ -1514,7 +1529,7 @@ def phase_build_map(frames, poses, dev, smi: str, profile: bool):
                 cam_id=scene.obs_cam[alive], pt_id=scene.obs_pt[alive], uv=scene.obs_uv[alive],
                 w_valid=torch.ones(int(alive.sum()), device=dev))
     kstats = ba_kernel_checks(f"{n}-frame build", prob, stats["ba_path"]["tp"],
-                              cfg.recon.huber_px / FOCAL, smi)
+                              cfg.recon.huber_px / FOCAL, smi, profile)
     return scene, feats, tt, sim, launches, kstats
 
 
@@ -1589,6 +1604,98 @@ def phase_ba_crosscheck(dev) -> None:
     assert float(c0[-1]) < 0.5 * float(c0[0]) and dmax < 2e-2
 
 
+def phase_tune(dev, smi: str) -> None:
+    """The sweeps behind the kernels' constants.  K1: the four segments of
+    the default config on a 32-image VGA batch and on its half-size octave,
+    for tiles and fused-step limits that fit the block's shared memory.  K6:
+    slot groups per point on the 512-camera problem and on one of the
+    96-frame build's size (tp = 64), call time by CUDA events and device
+    time by torch.profiler; then the host's time per call of K6's wrapper
+    and of its parts beside two small PyTorch ops."""
+    import torch
+
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.kernels import features as F
+    from sfmx_torch.kernels import scale_space as ss
+    from sfmx_torch.kernels import segsum as sg
+    from sfmx_torch.solvers import schur
+    from tests.smoke_scenes import ba_problem
+
+    cfg = F.ScaleSpaceConfig()
+    segs = F.level_taus(cfg)
+    g = torch.Generator().manual_seed(0)
+    for shape in ((SERVE_BATCH, H_IMG, W_IMG), (SERVE_BATCH, H_IMG // 2, W_IMG // 2)):
+        L0 = F.gaussian_blur(torch.rand(shape, generator=g).to(dev), 2.0).contiguous()
+        k2 = F.contrast_k2(L0).reshape(-1).contiguous()
+        rows = []
+        for tile in ((96, 128), (80, 160), (120, 128), (96, 160), (64, 128), (60, 160), (48, 128),
+                     (96, 96), (64, 64)):
+            for mf in range(1, 9):
+                longest = max(len(c) for t in segs for c in ss.fused_chunks(t, mf))
+                if ss._plane_bytes(longest, *tile) > ss.SMEM_BYTES:
+                    continue
+
+                def run(tile=tile, mf=mf):
+                    L = L0
+                    for taus in segs:
+                        for chunk in ss.fused_chunks(taus, mf):
+                            L = ss._diffuse_fused(L, k2, chunk, *tile)
+
+                n = sum(len(ss.fused_chunks(t, mf)) for t in segs)
+                rows.append((cuda_ms(run, reps=5, warm=1), tile, mf, n))
+        rows.sort()
+        log(f"[tune] K1 B={shape[0]} {shape[1]}x{shape[2]}, all 4 segments, ms by (tile, most "
+            f"fused steps, launches), best first: "
+            + "; ".join(f"{ms:.3f} {t[0]}x{t[1]} {mf} {n}" for ms, t, mf, n in rows) + f"; on {smi}")
+
+    for tag, (C, P, O, tp, window, longs) in {"512 cameras": (512, 20000, 200000, 32, 16, 0),
+                                              "build-sized": (96, 2267, 36000, 64, 24, 100)}.items():
+        prob = {k: torch.as_tensor(v, device=dev) for k, v in
+                ba_problem(C, P, O, seed=0, window=window, perturb=0.03, long_tracks=longs).items()}
+        dense = sg.build_dense_obs(prob["pt_id"], prob["cam_id"], P, C, tp)
+        uvw = sg.pack_rows(dense, torch.cat([prob["uv"], prob["w_valid"][:, None]], 1))
+        cam19 = sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"], prob["t"])
+        _U, _bc, v13, Wp = sg.ba_assemble_fused(cam19, dense, uvw, prob["X"].T.contiguous(), 0.008)
+        cross = sg.SchurMatvec(Wp, dense, schur._damp_inv3_rows(v13[:9], 1e-4).contiguous())
+        xv = torch.randn((6, C), generator=g).to(dev)
+        parts = []
+        for groups in (1, 2, 4, 8, 16, 32):
+            ms = cuda_ms(lambda: cross(xv, groups=groups), reps=21, warm=3)
+            ms_dev, by_name, _t = device_ms_per_run(lambda: cross(xv, groups=groups), 20)
+            parts.append(f"{groups}: {ms:.4f} call, {ms_dev:.4f} device ("
+                         + " + ".join(f"{t:.4f}" for t in by_name.values()) + ")")
+        log(f"[tune] K6 {tag} C={C} P={P} O={int(dense.cnt.sum())} tp={tp} (longest track "
+            f"{int(dense.cnt.max())}), ms by slot groups: " + "; ".join(parts) + f"; on {smi}")
+
+    # where a call's host time goes (the last system above): the CUDA-event
+    # time of one K6 call is the host's path to its second launch
+    def host_us(fn, n: int = 2000) -> float:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    a, b = torch.randn((C, 6), generator=g).to(dev), torch.randn((C, 6), generator=g).to(dev)
+    f32 = torch.float32
+    probes = {
+        "bound K6 call": lambda: cross(xv),
+        "one-shot K6 wrapper": lambda: sg.schur_cross_matvec(Wp, dense, cross.Vinv9, xv),
+        "two torch.empty": lambda: (torch.empty((3, P), dtype=f32, device=dev),
+                                    torch.empty((6, C), dtype=f32, device=dev)),
+        "torch.cuda.current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_build.stream_ptr": lambda: _build.stream_ptr(dev),
+        "a + b on (C,6)": lambda: a + b,
+        "torch.sum(a * b)": lambda: torch.sum(a * b),
+    }
+    log("[tune] host us per call, back to back without a sync: "
+        + "; ".join(f"{k} {host_us(fn):.2f}" for k, fn in probes.items()) + f"; on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1602,6 +1709,9 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     phase_build()
+    if "--tune" in sys.argv[1:]:
+        phase_tune(dev, smi)
+        return 0
     tex = room.RoomTexture(seed=0)
     probe = render(tex, query_poses())
     phase_kernels(probe, dev)

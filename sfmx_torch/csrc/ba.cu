@@ -20,28 +20,41 @@
 // intermediate in registers.
 //
 // Design:
-//   * Point side: one thread per point loops over its slots.  Adjacent
-//     threads read adjacent addresses of every W / uvw / camp row, so the
-//     streams coalesce; the sums over a point's observations (y, V, b_p,
-//     cost) stay in registers and need no scatter.  The camera of a slot is
-//     read by index from the small per-camera table, which stays in cache:
-//     the TPU kernels' one-hot matmuls, their hi/lo bf16 split and their
-//     per-tile camera window have no counterpart here.
+//   * Point side of K7 and K8: one thread per point loops over its slots.
+//     Adjacent threads read adjacent addresses of every W / uvw / camp row,
+//     so the streams coalesce; the sums over a point's observations (V,
+//     b_p, cost) stay in registers and need no scatter.  The camera of a
+//     slot is read by index from the small per-camera table, which stays in
+//     cache: the TPU kernels' one-hot matmuls, their hi/lo bf16 split and
+//     their per-tile camera window have no counterpart here.
+//   * Point side of K6, which runs 32 times per LM iteration and whose time
+//     followed the longest track when a thread walked its point's slots
+//     alone: a point's slots are SPLIT ACROSS THREADS.  A block is 32
+//     adjacent points (x, so every row of W still coalesces) by G slot
+//     groups (y); thread (x, y) takes slots y, y+G, ...  The G partial sums
+//     of y = W^T x meet in shared memory and are added in group order, so
+//     tp dependent gather rounds become tp / G and the grid grows G-fold
+//     on small problems.
 //   * Camera side (K6: z = sum W vy, K7: U and b_c): the TPU kernels
 //     accumulate across a sequential grid; CUDA blocks run in no order.
-//     Chosen here: a SECOND, CAMERA-MAJOR launch and no atomics.  A
-//     camera-sorted list of the dense slots (`cam_slot`, with `cam_ptr`
-//     offsets, built once per solve on the host side of the wrapper) gives
-//     each camera to one block; its threads stride over the camera's
-//     observations, K7 recomputes the cheap projection (camera parameters
-//     are per-block constants), and a fixed shuffle + shared-memory tree
-//     reduces the partial sums.  Why not f32 atomicAdd: 6 (K6) or 42 (K7)
-//     atomics per observation onto a few thousand addresses serialize, and
-//     their order changes from run to run, so two solves of one problem
-//     would differ in the last bits and, through the accept/reject of LM
-//     steps, sometimes visibly.  The second launch re-reads W as gathers
-//     (mostly from L2, which the point pass just filled) and makes every
-//     result of these kernels bit-reproducible.
+//     Chosen here: a SECOND, CAMERA-MAJOR launch and no atomics.  Why not
+//     f32 atomicAdd: 6 (K6) or 42 (K7) atomics per observation onto a few
+//     thousand addresses serialize, and their order changes from run to
+//     run, so two solves of one problem would differ in the last bits and,
+//     through the accept/reject of LM steps, sometimes visibly.
+//       K6: the block that just computed vy for its 32 points walks its
+//     slots once more (W is still in L1/L2, read coalesced) and writes each
+//     slot's 6 products W vy to the slot's place in a camera-major scratch
+//     (6, n_dense); `slot_pos` holds that place for every dense slot.  The
+//     second launch gives each camera to one block, which STREAMS its
+//     contiguous run of the scratch and reduces it with a fixed shuffle +
+//     shared-memory tree: W is never gathered at stride P.
+//       K7: a camera-sorted list of the dense slots (`cam_slot`, with
+//     `cam_ptr` offsets; both built once per solve on the host side of the
+//     wrapper) gives each camera to one block; its threads stride over the
+//     camera's observations and recompute the cheap projection (camera
+//     parameters are per-block constants) before the same tree.
+//     Every result of these kernels is bit-reproducible.
 //   * K7 and K8 share `project_residual` and `huber`, so the cost a trial
 //     step is compared with comes from the same arithmetic as the cost of
 //     the accepted state.
@@ -50,7 +63,7 @@
 
 namespace {
 
-constexpr int PT_THREADS = 128;   // point-major kernels: threads (= points) per block
+constexpr int PT_THREADS = 128;   // K7, K8 point-major kernels: threads (= points) per block
 constexpr int CAM_THREADS = 128;  // camera-major kernels: threads per camera block
 constexpr int MAX_NC = 16;        // K8: parameter candidates per launch
 
@@ -160,30 +173,29 @@ __device__ __forceinline__ void block_sum(const float* acc, float* smem) {
 }
 
 // ---------------------------------------------------------------------------
-// K6: y = sum_slots W^T x[cam] + bias; vy = Vinv y   (point pass)
-//     z[cam] = sum_obs W vy[pt]                      (camera pass)
+// K6: y = sum_slots W^T x[cam] + bias; vy = Vinv y; zo[slot] = W vy  (point pass)
+//     z[cam] = sum of the camera's run of zo                          (camera pass)
 // ---------------------------------------------------------------------------
 // Replaces schur_cross_matvec (sfmx/kernels/segsum.py, _matvec_kernel).
 // Bound by bytes: O*72 B of W plus O*4 B of camp against 72 FLOP per
-// observation.  The point pass streams W coalesced and stops at cnt[p]; the
-// camera pass re-reads W as 4-byte gathers, which the L2 mostly serves.
-// Camera-side reduction: the camera-major second launch, no atomics.
+// observation.  On the problems BA really solves (10^4-10^5 observations)
+// the time is latency, not bytes: the point pass cuts the dependent rounds
+// per thread to tp / G, and the camera pass reads a stream.
 
-__global__ void __launch_bounds__(PT_THREADS)
+constexpr int PT_LANES = 32;      // points per block of the K6 point pass
+
+__global__ void __launch_bounds__(PT_LANES * 32)
 matvec_point_kernel(const float* __restrict__ Wp, const int* __restrict__ camp,
-                    const int* __restrict__ cnt, const float* __restrict__ vinv9,
-                    const float* __restrict__ x6, const float* __restrict__ bias3,
-                    float* __restrict__ vy3, int tp, int P, int C) {
-  const int p = blockIdx.x * PT_THREADS + threadIdx.x;
-  if (p >= P) return;
+                    const int* __restrict__ cnt, const int* __restrict__ slot_pos,
+                    const float* __restrict__ vinv9, const float* __restrict__ x6,
+                    const float* __restrict__ bias3, float* __restrict__ vy3,
+                    float* __restrict__ zo, int tp, int P, int C, int n_dense) {
+  extern __shared__ float part[];           // (G, 3, 32) partial y, then (3, 32) vy
+  const int lane = threadIdx.x, g = threadIdx.y, G = blockDim.y;
+  const int p = blockIdx.x * PT_LANES + lane;
+  const int n = p < P ? min(cnt[p], tp) : 0;
   float y0 = 0.0f, y1 = 0.0f, y2 = 0.0f;
-  if (bias3 != nullptr) {
-    y0 = bias3[p];
-    y1 = bias3[P + p];
-    y2 = bias3[2 * P + p];
-  }
-  const int n = min(cnt[p], tp);
-  for (int j = 0; j < n; ++j) {
+  for (int j = g; j < n; j += G) {
     const int c = camp[(size_t)j * P + p];
     const float* w = Wp + (size_t)j * 18 * P + p;
 #pragma unroll
@@ -194,31 +206,60 @@ matvec_point_kernel(const float* __restrict__ Wp, const int* __restrict__ camp,
       y2 += w[(size_t)(a * 3 + 2) * P] * xa;
     }
   }
-  float vi[9];
+  part[(g * 3 + 0) * PT_LANES + lane] = y0;
+  part[(g * 3 + 1) * PT_LANES + lane] = y1;
+  part[(g * 3 + 2) * PT_LANES + lane] = y2;
+  __syncthreads();
+  float* vys = part + G * 3 * PT_LANES;
+  if (g == 0 && p < P) {
+    // the bias first, then the groups in order: a fixed summation order
+    y0 = y1 = y2 = 0.0f;
+    if (bias3 != nullptr) {
+      y0 = bias3[p];
+      y1 = bias3[P + p];
+      y2 = bias3[2 * (size_t)P + p];
+    }
+    for (int q = 0; q < G; ++q) {
+      y0 += part[(q * 3 + 0) * PT_LANES + lane];
+      y1 += part[(q * 3 + 1) * PT_LANES + lane];
+      y2 += part[(q * 3 + 2) * PT_LANES + lane];
+    }
+    float vi[9];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) vi[i] = vinv9[(size_t)i * P + p];
-  vy3[p] = vi[0] * y0 + vi[1] * y1 + vi[2] * y2;
-  vy3[P + p] = vi[3] * y0 + vi[4] * y1 + vi[5] * y2;
-  vy3[2 * (size_t)P + p] = vi[6] * y0 + vi[7] * y1 + vi[8] * y2;
+    for (int i = 0; i < 9; ++i) vi[i] = vinv9[(size_t)i * P + p];
+    const float v0 = vi[0] * y0 + vi[1] * y1 + vi[2] * y2;
+    const float v1 = vi[3] * y0 + vi[4] * y1 + vi[5] * y2;
+    const float v2 = vi[6] * y0 + vi[7] * y1 + vi[8] * y2;
+    vy3[p] = v0;
+    vy3[P + p] = v1;
+    vy3[2 * (size_t)P + p] = v2;
+    vys[lane] = v0;
+    vys[PT_LANES + lane] = v1;
+    vys[2 * PT_LANES + lane] = v2;
+  }
+  __syncthreads();
+  const float v0 = vys[lane], v1 = vys[PT_LANES + lane], v2 = vys[2 * PT_LANES + lane];
+  for (int j = g; j < n; j += G) {
+    const int k = slot_pos[(size_t)j * P + p];
+    const float* w = Wp + (size_t)j * 18 * P + p;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+      zo[(size_t)a * n_dense + k] = w[(size_t)(a * 3 + 0) * P] * v0 +
+                                    w[(size_t)(a * 3 + 1) * P] * v1 +
+                                    w[(size_t)(a * 3 + 2) * P] * v2;
+  }
 }
 
 __global__ void __launch_bounds__(CAM_THREADS)
-matvec_cam_kernel(const float* __restrict__ Wp, const int* __restrict__ cam_ptr,
-                  const int* __restrict__ cam_slot, const float* __restrict__ vy3,
-                  float* __restrict__ z6, int P, int C) {
+matvec_cam_kernel(const float* __restrict__ zo, const int* __restrict__ cam_ptr,
+                  float* __restrict__ z6, int n_dense, int C) {
   __shared__ float smem[(CAM_THREADS / 32) * 6];
   const int c = blockIdx.x;
   const int beg = cam_ptr[c], end = cam_ptr[c + 1];
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int k = beg + threadIdx.x; k < end; k += CAM_THREADS) {
-    const int s = cam_slot[k];
-    const int j = s / P, p = s - j * P;
-    const float v0 = vy3[p], v1 = vy3[P + p], v2 = vy3[2 * (size_t)P + p];
-    const float* w = Wp + (size_t)j * 18 * P + p;
 #pragma unroll
-    for (int a = 0; a < 6; ++a)
-      acc[a] += w[(size_t)(a * 3 + 0) * P] * v0 + w[(size_t)(a * 3 + 1) * P] * v1 +
-                w[(size_t)(a * 3 + 2) * P] * v2;
+    for (int a = 0; a < 6; ++a) acc[a] += zo[(size_t)a * n_dense + k];
   }
   block_sum<6>(acc, smem);
   if (threadIdx.x < 6) {
@@ -391,21 +432,26 @@ inline int point_blocks(int P) { return (P + PT_THREADS - 1) / PT_THREADS; }
 
 extern "C" {
 
-// K6.  Wp (tp*18, P) f32, camp (tp, P) i32, cnt (P,) i32, vinv9 (9, P),
-// x6 (6, C), bias3 (3, P) or null, cam_ptr (C+1,) i32, cam_slot (n_dense,)
-// i32 flat slot ids j*P + p sorted by camera.  Writes vy3 (3, P), z6 (6, C).
+// K6.  Wp (tp*18, P) f32, camp (tp, P) i32, cnt (P,) i32, slot_pos (tp, P)
+// i32 place of each dense slot in camera order (pads unread), vinv9 (9, P),
+// x6 (6, C), bias3 (3, P) or null, cam_ptr (C+1,) i32 offsets of each
+// camera's run, zo (6, n_dense) scratch.  `groups` (1..32) is the number of
+// threads that share a point's slots.  Writes vy3 (3, P), z6 (6, C).
 // Returns cudaGetLastError() after the two launches.
-int ba_schur_matvec(const float* Wp, const int* camp, const int* cnt, const float* vinv9,
-                    const float* x6, const float* bias3, const int* cam_ptr,
-                    const int* cam_slot, float* vy3, float* z6, int tp, int P, int C,
-                    void* stream) {
-  if (tp <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
+int ba_schur_matvec(const float* Wp, const int* camp, const int* cnt, const int* slot_pos,
+                    const float* vinv9, const float* x6, const float* bias3,
+                    const int* cam_ptr, float* zo, float* vy3, float* z6, int tp, int P, int C,
+                    int n_dense, int groups, void* stream) {
+  if (tp <= 0 || P <= 0 || C <= 0 || n_dense < 0 || groups < 1 || groups > 32)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  matvec_point_kernel<<<point_blocks(P), PT_THREADS, 0, st>>>(Wp, camp, cnt, vinv9, x6, bias3,
-                                                              vy3, tp, P, C);
+  const dim3 block(PT_LANES, groups);
+  const size_t smem = (size_t)(groups + 1) * 3 * PT_LANES * sizeof(float);
+  matvec_point_kernel<<<(P + PT_LANES - 1) / PT_LANES, block, smem, st>>>(
+      Wp, camp, cnt, slot_pos, vinv9, x6, bias3, vy3, zo, tp, P, C, n_dense);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  matvec_cam_kernel<<<C, CAM_THREADS, 0, st>>>(Wp, cam_ptr, cam_slot, vy3, z6, P, C);
+  matvec_cam_kernel<<<C, CAM_THREADS, 0, st>>>(zo, cam_ptr, z6, n_dense, C);
   return cudaGetLastError();
 }
 

@@ -6,6 +6,13 @@ det-Hessian of every level; both are CUDA kernels in
 ``sfmx_torch/csrc/scale_space.cu``.  Each wrapper runs its plain PyTorch
 version for CPU tensors only; for a CUDA tensor it launches the kernel or
 raises.  Boundaries are periodic on both paths.
+
+K1 is tiled: a block loads an output tile of ``TILE_H x TILE_W`` pixels with
+a halo of 2 pixels per fused FED step into shared memory (the only place
+that wraps indices), runs up to ``MAX_FUSED`` steps there and keeps the
+tile's interior.  ``fused_chunks`` cuts a segment into such launches and
+``diffuse_segment_tiled`` mirrors the decomposition in plain PyTorch for the
+CPU tests.
 """
 from __future__ import annotations
 
@@ -24,8 +31,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load(LIB)
     if not getattr(lib, "_sfmx_typed", False):
-        lib.ss_diffuse_segment.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-        lib.ss_diffuse_segment.restype = _I
+        lib.ss_diffuse_fused.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        lib.ss_diffuse_fused.restype = _I
         lib.ss_response_levels.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.ss_response_levels.restype = _I
         lib.ss_error_string.argtypes = [_I]
@@ -60,8 +67,81 @@ def diffuse_segment_plain(L: torch.Tensor, k2: torch.Tensor, taus: tuple) -> tor
     return L
 
 
+# The output tile of one block and the most FED steps one launch fuses (the
+# kernel itself takes up to 8), chosen by ``chip_smoke.py --tune`` on a
+# 32-image VGA batch.  The three shared-memory planes (L twice, the
+# conductance) of tile + halo must fit the 227 KB a block may use on the
+# H100: see ``_plane_bytes``.
+TILE_H, TILE_W = 80, 160
+MAX_FUSED = 6
+SMEM_BYTES = 232448
+MAX_PLANE_W = 224     # the kernel's widest plane row (tile + halo)
+
+
+def _plane_bytes(n_steps: int, tile_h: int, tile_w: int) -> int:
+    return 3 * 4 * (tile_h + 4 * n_steps) * (tile_w + 4 * n_steps)
+
+
+def fused_chunks(taus: tuple, max_fused: int = MAX_FUSED) -> list[tuple]:
+    """Cut a segment's FED steps into the fewest launches of at most
+    ``max_fused`` steps each, as even as possible, in order."""
+    n = len(taus)
+    k = -(-n // max_fused)
+    sizes = [n // k + (i < n % k) for i in range(k)] if k else []
+    out, at = [], 0
+    for m in sizes:
+        out.append(tuple(taus[at:at + m]))
+        at += m
+    return out
+
+
+def diffuse_segment_tiled(L: torch.Tensor, k2: torch.Tensor, taus: tuple,
+                          tile: tuple = (TILE_H, TILE_W), max_fused: int = MAX_FUSED):
+    """Plain-PyTorch mirror of the K1 kernel's decomposition, for tests: per
+    launch of ``fused_chunks``, cut the image into tiles, load tile + halo
+    (2 per step) with wrapped indices, run the steps on the padded tile and
+    keep the interior.  The steps wrap inside the padded tile, which spoils
+    2 pixels per step from its border inwards: exactly the halo."""
+    B, H, W = L.shape
+    th, tw = tile
+    k2 = k2.reshape(-1, 1, 1)
+    for chunk in fused_chunks(taus, max_fused):
+        halo = 2 * len(chunk)
+        out = torch.empty_like(L)
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                ys = torch.arange(y0 - halo, y0 + th + halo, device=L.device) % H
+                xs = torch.arange(x0 - halo, x0 + tw + halo, device=L.device) % W
+                t = L[:, ys][:, :, xs]
+                for tau in chunk:
+                    t = _diffusion_step(t, k2, tau)
+                h, w = min(th, H - y0), min(tw, W - x0)
+                out[:, y0:y0 + h, x0:x0 + w] = t[:, halo:halo + h, halo:halo + w]
+        L = out
+    return L
+
+
+def _diffuse_fused(L, k2, taus: tuple, tile_h: int, tile_w: int) -> torch.Tensor:
+    """One launch of K1: ``taus`` fused on tiles of tile_h x tile_w."""
+    if _plane_bytes(len(taus), tile_h, tile_w) > SMEM_BYTES or tile_w + 4 * len(taus) > MAX_PLANE_W:
+        raise ValueError(f"diffuse_segment: {len(taus)} fused steps on a {tile_h}x{tile_w} tile "
+                         f"need {_plane_bytes(len(taus), tile_h, tile_w)} B of shared memory (at most "
+                         f"{SMEM_BYTES}) and plane rows of {tile_w + 4 * len(taus)} (at most "
+                         f"{MAX_PLANE_W})")
+    lib = _lib()
+    B, H, W = L.shape
+    out = torch.empty_like(L)
+    taus_c = (ctypes.c_float * len(taus))(*taus)
+    err = lib.ss_diffuse_fused(L.data_ptr(), out.data_ptr(), k2.data_ptr(), taus_c, len(taus),
+                               B, H, W, tile_h, tile_w, _build.stream_ptr(L.device))
+    _raise_on(lib, err, "diffuse_segment")
+    _build.LAUNCHES.add("diffuse_segment", 1)
+    return out
+
+
 def diffuse_segment(L: torch.Tensor, k2: torch.Tensor, taus: tuple) -> torch.Tensor:
-    """K1: run the FED steps ``taus`` of one level segment.
+    """K1: run the FED steps ``taus`` of one level segment, one launch per
+    chunk of ``fused_chunks``.  Any image size: the tile load wraps.
 
     L (B,H,W) f32, k2 (B,) f32 per-image contrast^2 -> (B,H,W) f32.
     """
@@ -69,21 +149,13 @@ def diffuse_segment(L: torch.Tensor, k2: torch.Tensor, taus: tuple) -> torch.Ten
         return diffuse_segment_plain(L, k2, taus)
     _check_cuda(L, "L", 3)
     _check_cuda(k2, "k2", 1)
-    B, H, W = L.shape
-    if k2.shape[0] != B or k2.device != L.device:
-        raise ValueError(f"k2 must be ({B},) on {L.device}")
+    if k2.shape[0] != L.shape[0] or k2.device != L.device:
+        raise ValueError(f"k2 must be ({L.shape[0]},) on {L.device}")
     if not taus:
         return L.clone()
-    lib = _lib()
-    out = torch.empty_like(L)
-    tmp = torch.empty_like(L) if len(taus) > 1 else out
-    taus_c = (ctypes.c_float * len(taus))(*taus)
-    err = lib.ss_diffuse_segment(L.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                                 k2.data_ptr(), taus_c, len(taus), B, H, W,
-                                 _build.stream_ptr(L.device))
-    _raise_on(lib, err, "diffuse_segment")
-    _build.LAUNCHES.add("diffuse_segment", len(taus))     # one launch per FED step
-    return out
+    for chunk in fused_chunks(taus):
+        L = _diffuse_fused(L, k2, chunk, TILE_H, TILE_W)
+    return L
 
 
 # ---------------------------------------------------------------------------

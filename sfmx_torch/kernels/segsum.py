@@ -8,9 +8,11 @@ blocks are written once per LM iteration by the assembly (K7) in the
 (tp*18, P) layout the CG matvec (K6) streams.  The port drops what the TPU
 shaped: the point axis is not padded to a tile multiple nor the camera axis
 to 128, vectors carry 6/3/9 rows instead of 8/8/16, and there is no camera
-window.  It adds the per-point slot count and a camera-sorted list of the
-dense slots, which the kernels' camera-major second launch walks (see
-``sfmx_torch/csrc/ba.cu``).
+window.  It adds the per-point slot count, a camera-sorted list of the
+dense slots, which K7's camera-major second launch walks, and its inverse
+(``slot_pos``: every dense slot's place in that list), through which K6's
+point pass writes a camera-major scratch that its second launch streams
+(see ``sfmx_torch/csrc/ba.cu``).
 
 For CUDA tensors each wrapper launches the hand-written kernels in
 ``sfmx_torch/csrc/ba.cu`` or raises; the ``*_plain`` functions are their
@@ -37,6 +39,7 @@ class DenseObs(NamedTuple):
     cnt: torch.Tensor       # (P,) int32 real slots of each point
     cam_ptr: torch.Tensor   # (C+1,) int32 offsets into cam_slot
     cam_slot: torch.Tensor  # (n_dense,) int32 flat slot ids j*P + p, sorted by camera
+    slot_pos: torch.Tensor  # (tp, P) int32 place of each dense slot in cam_slot (pad: -1)
 
 
 def build_dense_obs(pt_id: torch.Tensor, cam_id: torch.Tensor, n_pts: int, n_cams: int,
@@ -70,7 +73,9 @@ def build_dense_obs(pt_id: torch.Tensor, cam_id: torch.Tensor, n_pts: int, n_cam
     order = torch.argsort(cams, stable=True)
     cam_slot = flat[order].to(torch.int32)
     cam_ptr = torch.searchsorted(cams[order], torch.arange(n_cams + 1, device=dev)).to(torch.int32)
-    return DenseObs(camp, rows, cnt, cam_ptr, cam_slot)
+    slot_pos = torch.full((tp_cap * n_pts,), -1, dtype=torch.int32, device=dev)
+    slot_pos[flat[order]] = torch.arange(flat.shape[0], dtype=torch.int32, device=dev)
+    return DenseObs(camp, rows, cnt, cam_ptr, cam_slot, slot_pos.reshape(tp_cap, n_pts))
 
 
 def pack_rows(dense: DenseObs, vals: torch.Tensor) -> torch.Tensor:
@@ -165,6 +170,32 @@ def schur_cross_matvec_plain(Wp, camp, Vinv9, x6, bias3=None):
     return z, vy
 
 
+SLOT_GROUPS = 16   # threads that share a point's slots in K6's point pass
+
+
+def schur_cross_matvec_two_pass(Wp, dense: DenseObs, Vinv9, x6, bias3=None,
+                                groups: int = SLOT_GROUPS):
+    """Plain-PyTorch mirror of the K6 kernel's decomposition, for tests.
+    Point pass: group g of ``groups`` sums slots g, g+groups, ... of each
+    point, the partial sums meet in group order after the bias, vy = V^-1 y,
+    and every real slot's W vy goes to its place ``slot_pos`` in a
+    camera-major scratch.  Camera pass: each camera sums its run of it."""
+    tp, P = dense.camp.shape
+    W = Wp.reshape(tp, 6, 3, P)
+    real = torch.arange(tp, device=Wp.device)[:, None] < dense.cnt[None, :]
+    terms = torch.einsum("jakp,ajp->jkp", W, x6[:, dense.camp.long()]) * real[:, None, :]
+    y = torch.zeros_like(Vinv9[:3]) if bias3 is None else bias3.clone()
+    for g in range(groups):
+        y = y + terms[g::groups].sum(dim=0)
+    vy = torch.einsum("klp,lp->kp", Vinv9.reshape(3, 3, P), y)
+    n_dense = dense.cam_slot.shape[0]
+    zo = torch.zeros((6, n_dense), dtype=Wp.dtype, device=Wp.device)
+    zo[:, dense.slot_pos[real].long()] = torch.einsum("jakp,kp->ajp", W, vy)[:, real]
+    runs = (dense.cam_ptr[1:] - dense.cam_ptr[:-1]).long()
+    cam_of = torch.repeat_interleave(torch.arange(runs.shape[0], device=Wp.device), runs)
+    return torch.zeros_like(x6).index_add_(1, cam_of, zo), vy
+
+
 def ba_assemble_fused_plain(cam19, camp, uvw, x3, delta):
     """Plain version of K7: returns (U (C,6,6), b_c (C,6), v13 (13,P),
     Wp (tp*18,P))."""
@@ -212,7 +243,7 @@ def ba_cost_fused_plain(cam19s, camp, uvw, x3s, delta, nc: int):
 def _lib() -> ctypes.CDLL:
     lib = _build.load(LIB)
     if not getattr(lib, "_sfmx_typed", False):
-        lib.ba_schur_matvec.argtypes = [_P] * 10 + [_I, _I, _I, _P]
+        lib.ba_schur_matvec.argtypes = [_P] * 11 + [_I] * 5 + [_P]
         lib.ba_assemble.argtypes = [_P] * 5 + [_F] + [_P] * 6 + [_I, _I, _I, _P]
         lib.ba_cost.argtypes = [_P] * 5 + [_F, _P, _I, _I, _I, _I, _P]
         for fn in (lib.ba_schur_matvec, lib.ba_assemble, lib.ba_cost, lib.ba_max_candidates):
@@ -242,6 +273,65 @@ def _raise(name: str, lib, err: int):
         raise RuntimeError(f"{name}: {lib.ba_error_string(err).decode()} ({err})")
 
 
+class SchurMatvec:
+    """K6 bound to one system: ``Wp``, the layout and ``Vinv9`` are checked
+    once here, and every call checks only its vectors.  The PCG loop calls
+    one of these 32 times per LM iteration (``schur.SchurSystemD``).
+
+    On CUDA tensors a call launches the kernels or raises; on CPU tensors it
+    runs the plain version.  The camera-major scratch and the two outputs
+    are allocated once: a call returns THIS OBJECT'S z6 and vy3, which its
+    next call overwrites (calls on one stream are ordered).  The solver
+    consumes them at once; a caller that keeps them clones them, and the
+    one-shot ``schur_cross_matvec`` hands out fresh ones.  Allocating two
+    tensors per call cost a third of the call's host time, which is what a
+    CG step waits for (``chip_smoke.py --tune`` probes it).
+    """
+
+    def __init__(self, Wp, dense: DenseObs, Vinv9):
+        self.Wp, self.dense, self.Vinv9 = Wp, dense, Vinv9
+        self.tp, self.P = dense.camp.shape
+        self.C = dense.cam_ptr.shape[0] - 1
+        self.cpu = _all_cpu(Wp, Vinv9, *dense)
+        if self.cpu:
+            return
+        tp, P, C = self.tp, self.P, self.C
+        self.dev = dev = Wp.device
+        f32, i32 = torch.float32, torch.int32
+        self.n_dense = dense.cam_slot.shape[0]
+        _check("schur_cross_matvec", dev, Wp=(Wp, f32, (tp * 18, P)),
+               camp=(dense.camp, i32, (tp, P)), cnt=(dense.cnt, i32, (P,)),
+               slot_pos=(dense.slot_pos, i32, (tp, P)), Vinv9=(Vinv9, f32, (9, P)),
+               cam_ptr=(dense.cam_ptr, i32, (C + 1,)))
+        self.lib = _lib()
+        self.zo = torch.empty((6, self.n_dense), dtype=f32, device=dev)
+        self.vy = torch.empty((3, P), dtype=f32, device=dev)
+        self.z = torch.empty((6, C), dtype=f32, device=dev)
+        self.static = (Wp.data_ptr(), dense.camp.data_ptr(), dense.cnt.data_ptr(),
+                       dense.slot_pos.data_ptr(), Vinv9.data_ptr())
+        self.tail = (dense.cam_ptr.data_ptr(), self.zo.data_ptr(), self.vy.data_ptr(),
+                     self.z.data_ptr(), tp, P, C, self.n_dense)
+
+    def __call__(self, x6, bias3=None, groups: int = SLOT_GROUPS):
+        if self.cpu and _all_cpu(x6, bias3):
+            return schur_cross_matvec_plain(self.Wp, self.dense.camp, self.Vinv9, x6, bias3)
+        if self.cpu:
+            raise ValueError("schur_cross_matvec: the system is on the CPU, the vectors are not")
+        P, C, dev = self.P, self.C, self.dev
+        f32 = torch.float32
+        for key, x, shape in (("x6", x6, (6, C)), ("bias3", bias3, (3, P))):
+            if x is not None and (x.device != dev or x.dtype != f32 or tuple(x.shape) != shape
+                                  or not x.is_contiguous()):
+                raise ValueError(f"schur_cross_matvec: {key} must be contiguous float32 {shape} on "
+                                 f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        err = self.lib.ba_schur_matvec(*self.static, x6.data_ptr(),
+                                       None if bias3 is None else bias3.data_ptr(), *self.tail,
+                                       groups, _build.stream_ptr(dev))
+        _raise("schur_cross_matvec", self.lib, err)
+        _build.LAUNCHES.add("schur_cross_matvec", 2)      # point pass, camera pass
+        return self.z, self.vy
+
+
 def schur_cross_matvec(Wp, dense: DenseObs, Vinv9, x6, bias3=None):
     """K6, the fused cross-term pass of the Schur system:
     y = sum_slots W^T x[cam] + bias;  vy = V^-1 y;  z[cam] = sum W vy.
@@ -250,32 +340,10 @@ def schur_cross_matvec(Wp, dense: DenseObs, Vinv9, x6, bias3=None):
     damped inverse point blocks, x6 (6, C) camera-side vector, bias3
     optional (3, P).  Returns (z6 (6, C), vy3 (3, P)).  The bias makes one
     kernel serve the CG matvec (no bias), the Schur rhs (x = 0, bias = b_p)
-    and back-substitution (x = dx_c, bias = -b_p, vy = -dx_p).
+    and back-substitution (x = dx_c, bias = -b_p, vy = -dx_p).  A caller
+    with many vectors for one system keeps the ``SchurMatvec``.
     """
-    if _all_cpu(Wp, dense.camp, Vinv9, x6, bias3):
-        return schur_cross_matvec_plain(Wp, dense.camp, Vinv9, x6, bias3)
-    tp, P = dense.camp.shape
-    C = x6.shape[1]
-    dev = Wp.device
-    f32, i32 = torch.float32, torch.int32
-    spec = dict(Wp=(Wp, f32, (tp * 18, P)), camp=(dense.camp, i32, (tp, P)),
-                cnt=(dense.cnt, i32, (P,)), Vinv9=(Vinv9, f32, (9, P)), x6=(x6, f32, (6, C)),
-                cam_ptr=(dense.cam_ptr, i32, (C + 1,)),
-                cam_slot=(dense.cam_slot, i32, dense.cam_slot.shape))
-    if bias3 is not None:
-        spec["bias3"] = (bias3, f32, (3, P))
-    _check("schur_cross_matvec", dev, **spec)
-    lib = _lib()
-    vy = torch.empty((3, P), dtype=f32, device=dev)
-    z = torch.empty((6, C), dtype=f32, device=dev)
-    err = lib.ba_schur_matvec(Wp.data_ptr(), dense.camp.data_ptr(), dense.cnt.data_ptr(),
-                              Vinv9.data_ptr(), x6.data_ptr(),
-                              None if bias3 is None else bias3.data_ptr(),
-                              dense.cam_ptr.data_ptr(), dense.cam_slot.data_ptr(),
-                              vy.data_ptr(), z.data_ptr(), tp, P, C, _build.stream_ptr(dev))
-    _raise("schur_cross_matvec", lib, err)
-    _build.LAUNCHES.add("schur_cross_matvec", 2)
-    return z, vy
+    return SchurMatvec(Wp, dense, Vinv9)(x6, bias3)
 
 
 def ba_assemble_fused(cam19, dense: DenseObs, uvw, x3, delta: float):

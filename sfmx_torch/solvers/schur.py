@@ -221,16 +221,16 @@ def pcg_planes(sys: SchurSystemP, iters: int = 30, fixed_cam_mask=None):
 class SchurSystemD(NamedTuple):
     """Reduced system in the dense point-major layout.
 
+    cross: K6 bound to this system's W blocks (tp*18, P), layout and damped
+    V^-1 (9, P), which it checks once for every matvec of the solve.
     ov_*: overflow observations, slots >= tp of tracks longer than the
     layout.  Their W^T x enters through K6's point-side bias and their W vy
-    adds to its camera-side output; ``vinv9`` holds the damped inverses of
-    the combined (dense + overflow) V, so the hybrid solve equals the
+    adds to its camera-side output; ``cross.Vinv9`` holds the damped inverses
+    of the combined (dense + overflow) V, so the hybrid solve equals the
     unsplit one.
     """
 
-    Wp: torch.Tensor        # (tp*18, P) point-major W blocks
-    dense: segsum.DenseObs
-    vinv9: torch.Tensor     # (9, P) damped V^-1
+    cross: segsum.SchurMatvec
     bp3: torch.Tensor       # (3, P) b_p
     Ud: torch.Tensor        # (C,6,6)
     b_red: torch.Tensor     # (C,6)
@@ -241,12 +241,12 @@ class SchurSystemD(NamedTuple):
 
 def _cross(sysd: SchurSystemD, x6: torch.Tensor, bias3):
     """K6 with the overflow observations chained in: (z6 (6,C), vy3 (3,P))."""
-    P = sysd.vinv9.shape[1]
+    P = sysd.cross.P
     if sysd.ov_W18 is not None:
         y_ov = _W_t_x(sysd.ov_W18, x6.T[sysd.ov_cam.long()])
         yp = _segment_sum(y_ov, sysd.ov_pt, P).T
         bias3 = yp.contiguous() if bias3 is None else bias3 + yp
-    z6, vy3 = segsum.schur_cross_matvec(sysd.Wp, sysd.dense, sysd.vinv9, x6, bias3)
+    z6, vy3 = sysd.cross(x6, bias3)
     if sysd.ov_W18 is not None:
         z_ov = _W_x(sysd.ov_W18, vy3.T[sysd.ov_pt.long()])
         z6 = z6 + _segment_sum(z_ov, sysd.ov_cam, x6.shape[1]).T
@@ -277,8 +277,8 @@ def reduce_system_fused(intr, k_idx, R, t, X, dense: segsum.DenseObs, uvw, lam, 
         v9r = v9r + ov_blocks.V9.T
         bpr = bpr + ov_blocks.b_p.T
         ov = (ov_blocks.W18, ov_blocks.cam_id, ov_blocks.pt_id)
-    sysd = SchurSystemD(Wp, dense, _damp_inv3_rows(v9r, lam).contiguous(), bpr.contiguous(),
-                        _damp(U, lam), b_c, *ov)
+    cross = segsum.SchurMatvec(Wp, dense, _damp_inv3_rows(v9r, lam).contiguous())
+    sysd = SchurSystemD(cross, bpr.contiguous(), _damp(U, lam), b_c, *ov)
     # b_red = b_c - scatter_cam(W V^-1 b_p): the kernel with x = 0
     z6, _ = _cross(sysd, torch.zeros((6, C), dtype=torch.float32, device=R.device), sysd.bp3)
     return sysd._replace(b_red=b_c - z6.T), cost

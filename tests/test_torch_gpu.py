@@ -38,19 +38,58 @@ def _images(dev, B=3, H=120, W=160):
     return torch.rand((B, H, W), generator=g).to(dev)
 
 
-@pytest.mark.parametrize("shape", [(3, 120, 160), (2, 97, 131)])
+# two tiles each way and no tile multiple; one exact tile; several tiles with
+# a ragged last one; an image smaller than the halo (the load wraps twice)
+K1_SHAPES = [(3, 120, 160), (2, 97, 131), (1, ss.TILE_H, ss.TILE_W), (2, 200, 300), (2, 6, 7)]
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
 def test_k1_diffuse_segment_matches_plain(cuda, shape):
     """Every FED segment, odd sizes included: atol 1e-4 (FMA contraction in
-    the kernel; levels lie in [0,1]); one launch counted per FED step."""
+    the kernel; levels lie in [0,1]); one launch counted per chunk of fused
+    FED steps."""
     L = F.gaussian_blur(_images(cuda, *shape), 2.0).contiguous()
     k2 = F.contrast_k2(L).reshape(-1).contiguous()
     for taus in F.level_taus(CFG):
         before = _build.LAUNCHES.get("diffuse_segment")
         out = ss.diffuse_segment(L, k2, taus)
-        assert _build.LAUNCHES.get("diffuse_segment") == before + len(taus)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES.get("diffuse_segment") == before + len(ss.fused_chunks(taus))
         ref = ss.diffuse_segment_plain(L, k2, taus)
         assert float((out - ref).abs().max()) <= 1e-4
         L = ref
+
+
+def test_k1_any_contrast_parameter(cuda):
+    """k2 inside the range where the kernel writes its divisions out (the
+    pipeline's k2 is >= 1e-6) and outside it, where it keeps the plain
+    expression, image by image: atol 1e-4 against the plain version, and
+    the same bits from a second launch."""
+    L = F.gaussian_blur(_images(cuda, 5, 90, 170), 2.0).contiguous()
+    k2 = torch.tensor([5e-4, 1e-14, 1e13, 1.0, 3e-38], device=cuda)
+    taus = F.level_taus(CFG)[1]
+    out = ss.diffuse_segment(L, k2, taus)
+    ref = ss.diffuse_segment_plain(L, k2, taus)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert torch.equal(out, ss.diffuse_segment(L, k2, taus))
+
+
+@pytest.mark.parametrize("tile,n", [((96, 128), 7), ((120, 128), 3), ((16, 24), 8), ((1, 32), 1),
+                                    ((130, 100), 1)])
+def test_k1_one_launch_on_other_tiles(cuda, tile, n):
+    """The kernel takes its tile and its fused step count at run time (the
+    wrapper's constants are one choice): other choices that fit the block's
+    shared memory give the same levels (atol 1e-4), one that does not fit
+    raises."""
+    L = F.gaussian_blur(_images(cuda, 2, 150, 210), 2.0).contiguous()
+    k2 = F.contrast_k2(L).reshape(-1).contiguous()
+    taus = F.level_taus(CFG)[3][:n]
+    out = ss._diffuse_fused(L, k2, taus, *tile)
+    torch.cuda.synchronize()
+    assert float((out - ss.diffuse_segment_plain(L, k2, taus)).abs().max()) <= 1e-4
+    with pytest.raises(ValueError):
+        ss._diffuse_fused(L, k2, F.level_taus(CFG)[3], 120, 160)
 
 
 def test_k2_response_levels_matches_plain(cuda):
@@ -319,7 +358,10 @@ def test_auto_dispatch_never_runs_plain_on_card(cuda, monkeypatch):
 # (C, P, O, tp_cap, long tracks): P not a multiple of the 128-point block,
 # the last camera and the last 3 points without observations, and with
 # long tracks more observations than slots (overflow left out of the layout)
-BA_SHAPES = [(24, 600, 4000, 32, 0), (37, 1001, 5000, 4, 8), (5, 131, 300, 8, 0)]
+# a fourth shape with tp = 64 and tracks of ~30 views (several slots per
+# thread of K6's point pass); every shape has points with no slot (cnt = 0)
+BA_SHAPES = [(24, 600, 4000, 32, 0), (37, 1001, 5000, 4, 8), (5, 131, 300, 8, 0),
+             (96, 500, 15000, 64, 12)]
 
 
 def _ba_case(dev, C, P, O, tp, longs, delta=1.0 / 500.0):
@@ -381,6 +423,15 @@ def test_k6_schur_matvec_matches_plain(cuda, shape, use):
     z2, vy2 = sg.schur_cross_matvec(Wp, d, vinv, x6, bias)
     assert torch.equal(z, z2) and torch.equal(vy, vy2)
     assert float(z[:, -1].abs().max()) == 0.0
+    assert int((d.cnt == 0).sum()) >= 3               # points without a slot ride along
+    # the system bound once (what the PCG loop calls), and other slot groups
+    bound = sg.SchurMatvec(Wp, d, vinv)
+    z3, vy3 = bound(x6, bias)
+    assert torch.equal(z, z3) and torch.equal(vy, vy3)
+    for groups in (1, 32):
+        zg, vyg = bound(x6, bias, groups=groups)
+        for got, ref in ((zg, rz), (vyg, rvy)):
+            assert bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-4 * ref.abs().max()).all())
 
 
 @pytest.mark.parametrize("shape", BA_SHAPES)

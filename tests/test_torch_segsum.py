@@ -12,6 +12,10 @@ Tolerances, and why:
 - K6: z and vy within rtol 1e-4 plus 1e-4 of the largest entry (the
   reference's own kernel tolerance, ``assert_allclose(rtol=1e-4,
   atol=1e-4*scale)``: f32 sums of up to tp*6 products in another order);
+- K6's kernel decomposition (``schur_cross_matvec_two_pass``: slot groups,
+  the camera-major scratch through ``slot_pos``, a run sum per camera):
+  the same tolerance against the plain version and the reference, since
+  only the order of the sums differs; ``slot_pos`` itself is exact;
 - K7 against the reference's planes pipeline (exact f32 gathers): U, V9, W
   within 1e-4 relative to the largest entry, b_c within 2e-3 and b_p within
   1e-3 (near-cancelling sums), cost rtol 1e-4: the reference's own
@@ -33,6 +37,7 @@ from sfmx.solvers import lm as jlm
 from sfmx.solvers import schur as jschur
 from sfmx_torch.kernels import segsum as tseg
 from sfmx_torch.solvers import lm as tlm
+from sfmx_torch.solvers import schur as tschur
 from tests.test_segsum import _planes_system, _raw_local_scene
 
 torch.set_num_threads(2)
@@ -123,6 +128,94 @@ def test_k6_plain_matches_reference(use, tp_cap):
         rz, rvy = np.asarray(ref_z)[:6, :C], np.asarray(ref_vy)[:3, :P]
         np.testing.assert_allclose(z.numpy(), rz, rtol=1e-4, atol=1e-4 * np.abs(rz).max())
         np.testing.assert_allclose(vy.numpy(), rvy, rtol=1e-4, atol=1e-4 * np.abs(rvy).max())
+
+
+@pytest.mark.parametrize("tp_cap", [32, 3, 1])
+def test_slot_pos_places_every_dense_slot_once_in_camera_order(tp_cap):
+    """``slot_pos`` is the inverse of the camera-sorted slot list: every
+    dense slot has one place, pads have none, a camera's places are one run
+    (``cam_ptr``), and inside a run the slots keep their (slot, point) order
+    (the stable sort that makes a camera's sum reproducible)."""
+    _, _, (cam_id, pt_id), _ = _planes_system(tp_cap=tp_cap)
+    C, P = 24, 600
+    d = tseg.build_dense_obs(T(pt_id), T(cam_id), P, C, tp_cap)
+    pos, cnt, camp = d.slot_pos.numpy(), d.cnt.numpy(), d.camp.numpy()
+    assert pos.shape == (tp_cap, P) and pos.dtype == np.int32
+    real = np.arange(tp_cap)[:, None] < cnt[None, :]
+    n_dense = int(cnt.sum())
+    assert (pos[~real] == -1).all()
+    np.testing.assert_array_equal(np.sort(pos[real]), np.arange(n_dense))
+    np.testing.assert_array_equal(d.cam_slot.numpy()[pos[real]], np.flatnonzero(real.reshape(-1)))
+    by_place = np.empty(n_dense, np.int64)
+    by_place[pos[real]] = camp[real]
+    assert (np.diff(by_place) >= 0).all()
+    np.testing.assert_array_equal(d.cam_ptr.numpy(), np.searchsorted(by_place, np.arange(C + 1)))
+    flat = d.cam_slot.numpy().astype(np.int64)
+    same_cam = np.diff(by_place) == 0
+    assert (np.diff(flat)[same_cam] > 0).all()
+
+
+@pytest.mark.parametrize("groups", [1, 5, tseg.SLOT_GROUPS, 32])
+@pytest.mark.parametrize("tp_cap", [32, 3], ids=["fits", "overflow-dropped"])
+@pytest.mark.parametrize("use", ["matvec", "bias"])
+def test_k6_two_pass_matches_plain_and_reference(use, tp_cap, groups):
+    """The kernel's decomposition in plain PyTorch (slots split over
+    ``groups`` threads, W vy scattered to camera-major places, a run sum per
+    camera) against ``schur_cross_matvec_plain`` and the jnp oracle."""
+    sysp, dense, nbp, Wp, vinv16, x8, bp8, rb8 = _k6_inputs(tp_cap)
+    C, P = 24, 600
+    xj, bj = {"matvec": (x8, None), "bias": (x8, rb8)}[use]
+    d = tseg.build_dense_obs(T(np.asarray(nbp.pt_id)), T(np.asarray(nbp.cam_id)), P, C, tp_cap)
+    args = (T(Wp)[:, :P].contiguous(), d, T(vinv16)[:9, :P].contiguous(),
+            T(xj)[:6, :C].contiguous(), None if bj is None else T(bj)[:3, :P].contiguous())
+    z, vy = tseg.schur_cross_matvec_two_pass(*args, groups=groups)
+    pz, pvy = tseg.schur_cross_matvec_plain(args[0], d.camp, *args[2:])
+    jz, jvy = jseg.schur_cross_matvec_ref(Wp, dense.camp, vinv16, xj, bj)
+    for rz, rvy in ((pz.numpy(), pvy.numpy()), (np.asarray(jz)[:6, :C], np.asarray(jvy)[:3, :P])):
+        np.testing.assert_allclose(z.numpy(), rz, rtol=1e-4, atol=1e-4 * np.abs(rz).max())
+        np.testing.assert_allclose(vy.numpy(), rvy, rtol=1e-4, atol=1e-4 * np.abs(rvy).max())
+
+
+def test_bound_matvec_equals_the_wrapper_and_checks_its_vectors():
+    """``SchurMatvec`` (the system checked once) returns what the one-shot
+    wrapper returns; a CPU system refuses vectors that are not on the CPU."""
+    sysp, dense, nbp, Wp, vinv16, x8, bp8, rb8 = _k6_inputs(32)
+    C, P = 24, 600
+    d = tseg.build_dense_obs(T(np.asarray(nbp.pt_id)), T(np.asarray(nbp.cam_id)), P, C, 32)
+    W, vinv = T(Wp)[:, :P].contiguous(), T(vinv16)[:9, :P].contiguous()
+    x, b = T(x8)[:6, :C].contiguous(), T(rb8)[:3, :P].contiguous()
+    bound = tseg.SchurMatvec(W, d, vinv)
+    for got, ref in zip(bound(x, b), tseg.schur_cross_matvec(W, d, vinv, x, b)):
+        assert torch.equal(got, ref)
+    with pytest.raises(ValueError):
+        bound(torch.empty((6, C), device="meta"))
+
+
+def test_overflow_chain_equals_the_unsplit_system():
+    """``schur._cross`` with the observations past slot 3 riding the planes
+    ops (their W^T x through the kernel's bias, their W vy added to its
+    output) equals K6 on the layout that holds every observation: rtol 1e-4
+    plus 1e-4 of the largest entry."""
+    sysp, _, (cam_id, pt_id), nbp = _planes_system(tp_cap=32)
+    C, P, tp = 24, 600, 3
+    W18, vinv = T(np.asarray(nbp.W18)), T(np.asarray(sysp.Vinv9)).T.contiguous()
+    full = tseg.build_dense_obs(T(pt_id), T(cam_id), P, C, 32)
+    cut = tseg.build_dense_obs(T(pt_id), T(cam_id), P, C, tp)
+    start = np.searchsorted(np.asarray(pt_id), np.arange(P))
+    ov = T(np.flatnonzero(np.arange(len(pt_id)) - start[np.asarray(pt_id)] >= tp))
+    assert len(ov) > 100
+    sysd = tschur.SchurSystemD(tseg.SchurMatvec(tseg.pack_rows(cut, W18), cut, vinv),
+                               T(np.asarray(nbp.b_p)).T.contiguous(), None, None,
+                               W18[ov], T(cam_id)[ov], T(pt_id)[ov])
+    rng = np.random.default_rng(2)
+    x6 = T(rng.standard_normal((6, C)).astype(np.float32))
+    for bias in (None, sysd.bp3):
+        z, vy = tschur._cross(sysd, x6, bias)
+        rz, rvy = tseg.schur_cross_matvec(tseg.pack_rows(full, W18), full, vinv, x6, bias)
+        np.testing.assert_allclose(z.numpy(), rz.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(rz.abs().max()))
+        np.testing.assert_allclose(vy.numpy(), rvy.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(rvy.abs().max()))
 
 
 def _k7_inputs(tp_cap=16):
