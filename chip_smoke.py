@@ -4,7 +4,8 @@ front-end and reconstruction paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (``python3 chip_smoke.py --tune`` runs instead the sweeps behind K1's tile
-and fused-step constants and K6's slot groups, and prints no result lines.)
+and fused-step constants, K2's tile, K4's landmark tile, ring depth and
+splits, and K6's slot groups, and prints no result lines.)
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
@@ -34,15 +35,22 @@ Phases (each asserts; any failure exits non-zero):
                   plus distractor rooms (other textures, translated away) up
                   to >= 131,072 landmarks, so ``streaming="auto"`` picks K4
   9. K4         — match_top2 against its plain version on the first serving
-                  batch's query descriptors (32x1024 rows) vs the whole pool
+                  batch's query descriptors (32x1024 rows) and on the burst
+                  tail's (2x1024 rows, where the kernel splits the landmark
+                  loop and a second launch merges) vs the whole pool, each
+                  with its own bound; split and unsplit results bit-equal;
+                  with --profile what ``match_float_streaming`` adds around
+                  the kernel (device ms, host us)
  10. serve      — 8 bursts, one after another, of 66 concurrent image
                   requests through ``LocalizationService`` (max_batch 32,
                   window 5 ms) under asyncio.gather, a quarter with a beacon
                   prior, two with their own intrinsics; gates over all 528:
                   streaming chosen, median center error < 0.2 m, >= 75 %
-                  localized, batches < requests, K4 launches == batches (each
-                  batch is one streaming localize call); p50/p95/p99 latency
-                  over all requests, mean batch, requests/s
+                  localized, batches < requests, each batch one streaming
+                  localize call, K4 launches == the sum over those calls of
+                  what the wrapper says their query rows take (2 where it
+                  splits); p50/p95/p99 latency over all requests, mean
+                  batch, requests/s
  11. streaming  — one B=32 batch through ``localize_batch_streaming`` on the
                   card and on the CPU's plain path with the same RANSAC
                   noise (centers within 3 cm), and steady-state frames/s of
@@ -82,7 +90,8 @@ Phases (each asserts; any failure exits non-zero):
  16. counters   — launches of the gather path's run against the count it
                   implies, of the serving run (K1-K4 all > 0), and of each
                   front-end build (K1-K3 per extraction call, K1 one per
-                  chunk of fused FED steps; K5 and K9 two per wrapper call)
+                  chunk of fused FED steps, K2 one; K5 and K9 two per
+                  wrapper call)
  17. BA kernels — a random bundle-adjustment problem of 512 cameras, 20,000
                   points and 200,000 observations (tp = 32 slots per point,
                   30 CG steps): K7, K6 and K8 against their plain versions
@@ -107,7 +116,11 @@ Phases (each asserts; any failure exits non-zero):
                   < 0.2 m after the same similarity, >= 12/16 localized
  20. BA crosscheck — one 8-camera ``ba_solve`` on the card (K6-K8) against
                   the plain path on the CPU
-The last two lines are the kernel JSON and the device JSON.  Every kernel
+The last two lines are the kernel JSON and the device JSON.  K4's entry
+holds the serving batch's shape and, as ``tail_ms``, ``tail_bound_ms`` and
+``splits``, the burst tail's; ``ms`` times the wrapper on f32 descriptors
+(its casts to bf16 included, as the main path calls it), ``launch_ms`` the
+launches alone on bf16 inputs.  Every kernel
 carries ``bound_ms``: the larger of its necessary bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
 for their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), from this
@@ -136,6 +149,7 @@ MEDIAN_GATE_M = 0.2
 MAP_SCALE_LANDMARKS = 131072   # >= 2x LocalizeConfig.streaming_min_landmarks
 N_SERVE, SERVE_BATCH, SERVE_WINDOW_MS = 64, 32, 5.0
 N_BURSTS = 8                   # serving bursts, one after another, on one service
+N_TAIL = 2                     # images in a burst's last batch (66 = 32 + 32 + 2)
 FOCAL_OWN = 600.0              # the two requests that carry their own intrinsics
 RENDER_WORKERS = 8
 N_BUILD, N_BAND = 96, 256      # exhaustive build (4,560 pairs); the band build's loop walk
@@ -532,21 +546,25 @@ def device_ms_per_run(fn, reps: int):
     holds; the path runs on one stream, so they do not overlap; fn must not
     open a record_function range, whose device-side annotation would count
     as well), the device
-    time per run of each kernel name, and the profiler's table."""
+    time per run of each kernel name, and the profiler's table.  A trace
+    without any device event is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    for _ in range(3):      # now and then a trace comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if by_name:
+            break
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
     return sum(by_name.values()), by_name, table
 
@@ -677,10 +695,13 @@ def serve_poses():
     return room.walk_poses(2 * N_SERVE + 1)[1::2]
 
 
-def phase_k4(lmap, frames, dev) -> dict:
-    """K4 against its plain version on the first serving batch's query
-    descriptors (32 x 1024 rows) against the whole pool, padded and masked
-    as ``match_float_streaming`` does."""
+def phase_k4(lmap, frames, dev, smi: str, profile: bool) -> dict:
+    """K4 against its plain version at the serving run's two shapes: the
+    first batch's query descriptors (32 x 1024 rows) and the burst's tail (2
+    x 1024 rows, where the kernel splits the landmark loop), each against
+    the whole pool, padded and masked as ``match_float_streaming`` does.  At
+    the tail the split result must equal the unsplit one bit for bit.  With
+    ``profile`` also what the streaming matcher adds around the kernel."""
     import torch
     import torch.nn.functional as TF
 
@@ -691,29 +712,82 @@ def phase_k4(lmap, frames, dev) -> dict:
 
     f = extract_features(frames[:SERVE_BATCH], PipelineConfig(), dev)
     B, K, D = f.desc.shape
-    a = torch.where(f.kp.mask.reshape(-1)[:, None], f.desc.reshape(B * K, D), 0.0)
+    a_all = torch.where(f.kp.mask.reshape(-1)[:, None], f.desc.reshape(B * K, D), 0.0)
     b = torch.where(lmap.lm_alive[:, None], lmap.lm_desc, 0.0)
-    a = TF.pad(a, (0, 0, 0, round_up(a.shape[0], 256) - a.shape[0]))
     b = TF.pad(b, (0, 0, 0, round_up(b.shape[0], 2048) - b.shape[0]))
-    out = mt.match_top2(a, b)
-    ref = mt.match_top2_plain(a, b)
-    torch.cuda.synchronize()
     tol = KERNELS["match_top2"][2]
-    err = max(float((out[0] - ref[0]).abs().max()), float((out[2] - ref[2]).abs().max()))
-    clear = (ref[0] - ref[2]) > tol
-    bad = int((out[1] != ref[1])[clear].sum())
-    near = int((out[1] != ref[1])[~clear].sum())
-    ms = cuda_ms(lambda: mt.match_top2(a, b))
-    pms = cuda_ms(lambda: mt.match_top2_plain(a, b), reps=3, warm=1)
-    flop = 2.0 * a.shape[0] * b.shape[0] * 128
-    log(f"[K4] match_top2 {tuple(a.shape)} x {tuple(b.shape)} bf16: max_abs_err {err:.3e} "
-        f"(tol {tol:.0e}); index mismatches {bad} outside near-ties ({int(clear.sum())} rows), "
-        f"{near} among {int((~clear).sum())} near-tie rows; kernel {ms:.3f} ms "
-        f"({flop / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms")
-    assert err <= tol, f"match_top2: max_abs_err {err} > {tol}"
-    assert bad == 0, f"match_top2: {bad} index mismatches outside near-ties"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-            **bound((a.shape[0] + b.shape[0]) * 128 * 2 + a.shape[0] * 12, flop, "bf16")}
+    out = {}
+    for tag, n_img in (("batch", SERVE_BATCH), ("tail", N_TAIL)):
+        a = a_all[:n_img * K]
+        a = TF.pad(a, (0, 0, 0, round_up(a.shape[0], 256) - a.shape[0]))
+        Ka, Kb = a.shape[0], b.shape[0]
+        splits = mt.split_plan(Ka, Kb)[0]
+        got = mt.match_top2(a, b)
+        ref = mt.match_top2_plain(a, b)
+        torch.cuda.synchronize()
+        err = max(float((got[0] - ref[0]).abs().max()), float((got[2] - ref[2]).abs().max()))
+        clear = (ref[0] - ref[2]) > tol
+        bad = int((got[1] != ref[1])[clear].sum())
+        near = int((got[1] != ref[1])[~clear].sum())
+        other = mt.match_top2(a, b, splits=1 if splits > 1 else 8)
+        same = all(torch.equal(x, y) for x, y in zip(got, other))
+        ms = cuda_ms(lambda: mt.match_top2(a, b))
+        # the launches alone: the wrapper's casts of both sides to bf16 done before
+        a16, b16 = a.to(torch.bfloat16).contiguous(), b.to(torch.bfloat16).contiguous()
+        lms = cuda_ms(lambda: mt._match_top2_cuda(a16, b16))
+        pms = cuda_ms(lambda: mt.match_top2_plain(a, b), reps=3, warm=1)
+        flop = 2.0 * Ka * Kb * 128
+        bnd = bound((Ka + Kb) * 128 * 2 + Ka * 12, flop, "bf16")
+        log(f"[K4] match_top2 {tag} {tuple(a.shape)} x {tuple(b.shape)} bf16, {splits} split(s), "
+            f"{mt.match_top2_launches(Ka, Kb)} launch(es): max_abs_err {err:.3e} (tol {tol:.0e}); "
+            f"index mismatches {bad} outside near-ties ({int(clear.sum())} rows), {near} among "
+            f"{int((~clear).sum())} near-tie rows; equal to the "
+            f"{'unsplit' if splits > 1 else '8-split'} result bit for bit: {same}; kernel "
+            f"{ms:.3f} ms with the wrapper's bf16 casts, {lms:.3f} ms on bf16 inputs "
+            f"({flop / lms / 1e9:.1f} TFLOP/s), bound {bnd['bound_ms']:.3f} ms by "
+            f"{bnd['bound_by']}, plain {pms:.3f} ms; on {smi}")
+        assert err <= tol, f"match_top2 {tag}: max_abs_err {err} > {tol}"
+        assert bad == 0, f"match_top2 {tag}: {bad} index mismatches outside near-ties"
+        assert same, f"match_top2 {tag}: split and unsplit results differ"
+        out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "splits": splits,
+                    "launch_ms": lms, **bnd}
+    assert out["tail"]["splits"] > 1 and out["batch"]["splits"] == 1, out
+    if profile:
+        phase_k4_wrapper(f.desc.reshape(B * K, D), f.kp.mask.reshape(-1), lmap, smi)
+    tail = out["tail"]
+    return {**out["batch"], "max_abs_err": max(out["batch"]["max_abs_err"], tail["max_abs_err"]),
+            "splits": tail["splits"], "tail_ms": tail["ms"], "tail_bound_ms": tail["bound_ms"],
+            "tail_plain_ms": tail["plain_ms"], "tail_launch_ms": tail["launch_ms"]}
+
+
+def phase_k4_wrapper(desc, mask, lmap, smi: str, reps: int = 5) -> None:
+    """What ``match_float_streaming`` adds around K4 on one serving batch:
+    it masks, pads and casts the queries and the whole pool on every call.
+    Device ms by torch.profiler (the kernel's own beside everything else) and
+    the host's median time to enqueue one call on an idle card."""
+    import torch
+
+    from sfmx_torch.kernels import match as mt
+
+    def call():
+        mt.match_float_streaming(desc, lmap.lm_desc, mask, lmap.lm_alive, ratio=0.85)
+
+    ms_all, by_name, _table = device_ms_per_run(call, reps)
+    ms_k4 = sum(t for name, t in by_name.items() if "match_top2" in name or "merge_splits" in name)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(4 * reps):
+        t0 = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()      # so that no call waits for room in the launch queue
+    host_us = float(np.median(host)) * 1e6
+    top = sorted(((t, k) for k, t in by_name.items() if "match_top2" not in k), reverse=True)[:4]
+    log(f"[profile] match_float_streaming {tuple(desc.shape)} x {tuple(lmap.lm_desc.shape)}: "
+        f"device {ms_all:.3f} ms per call, of it K4 {ms_k4:.3f} ms and the wrapper's masking, "
+        f"padding and casts {ms_all - ms_k4:.3f} ms in {len(by_name) - 1} other device ops ("
+        + "; ".join(f"{t:.3f} ms {k[:50]}" for t, k in top)
+        + f"); host {host_us:.1f} us per call; on {smi}")
 
 
 def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
@@ -725,7 +799,9 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
 
     import sfmx_torch.serve.server as server
     from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.core.masking import round_up
     from sfmx_torch.kernels import _build
+    from sfmx_torch.kernels import match as mt
     from sfmx_torch.localize.fusion import BeaconPrior
     from sfmx_torch.localize.localize import use_streaming
 
@@ -764,10 +840,24 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
         finally:
             await svc.stop()
 
+    # the query rows of every streaming call the service makes, so that the
+    # K4 launches can be held against what the wrapper says each call takes
+    streaming, k4_rows = server.localize_batch_streaming, []
+
+    def recording(lmap_, q_desc, *args, **kw):
+        k4_rows.append(q_desc.shape[0] * q_desc.shape[1])
+        return streaming(lmap_, q_desc, *args, **kw)
+
+    server.localize_batch_streaming = recording
     torch.cuda.synchronize()
     _build.LAUNCHES.reset()
-    outs, walls = asyncio.run(run())
+    try:
+        outs, walls = asyncio.run(run())
+    finally:
+        server.localize_batch_streaming = streaming
     launches = dict(_build.LAUNCHES.counts)
+    Kb = round_up(lmap.lm_desc.shape[0], 2048)
+    k4_expected = sum(mt.match_top2_launches(round_up(max(r, 256), 256), Kb) for r in k4_rows)
 
     n = len(outs)
     eyes, reqs_all = eyes * N_BURSTS, reqs * N_BURSTS
@@ -790,12 +880,15 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
         f"{st['p50_latency_ms']:.1f} ms, p95 {st['p95_latency_ms']:.1f} ms, p99 "
         f"{st['p99_latency_ms']:.1f} ms; median center error {np.median(errs):.4f} m "
         f"(gate < {MEDIAN_GATE_M}); {n_loc}/{n} localized by vision; on {smi}")
-    log(f"[serve] launches {json.dumps(launches)}")
+    log(f"[serve] launches {json.dumps(launches)}; {len(k4_rows)} streaming calls with query rows "
+        f"{json.dumps({str(r): k4_rows.count(r) for r in sorted(set(k4_rows))})}, which take "
+        f"{k4_expected} K4 launches (a call that splits the landmark loop takes 2)")
     assert np.isfinite(errs).all(), "serve: non-finite pose"
     assert np.median(errs) < MEDIAN_GATE_M, f"serve: median center error {np.median(errs)}"
     assert n_loc >= 0.75 * n, f"serve: only {n_loc}/{n} localized"
     assert st["requests"] == n and st["batches"] < n, st
-    assert launches.get("match_top2", 0) == st["batches"], (launches, st)
+    assert len(k4_rows) == st["batches"], (k4_rows, st)
+    assert launches.get("match_top2", 0) == k4_expected, (launches, k4_expected)
     assert np.all(own < MEDIAN_GATE_M), f"serve: own-intrinsics requests off by {own}"
     assert all((o["source"] == 0) == (r.get("prior") is None)
                for o, r in zip(outs, reqs_all)), "serve: unexpected fusion sources"
@@ -1206,8 +1299,7 @@ def phase_front_profile(images, feats, pairs, stages: dict, cfg, dev, smi: str) 
 def extraction_launches() -> dict:
     """Launches of one extraction call (a chunk of 16 queries, or a whole
     build) through 2 octaves: per octave, K1 one per chunk of fused FED
-    steps of its 4 level segments, K2 two (gradients, then the determinant
-    of all levels), K3 one."""
+    steps of its 4 level segments, K2 one (all levels), K3 one."""
     from sfmx_torch.cli.config import PipelineConfig
     from sfmx_torch.kernels import features as F
     from sfmx_torch.kernels import scale_space as ss
@@ -1216,7 +1308,7 @@ def extraction_launches() -> dict:
     n_oct = fcfg.n_octaves
     n_k1 = sum(len(ss.fused_chunks(taus)) for taus in F.level_taus(
         F.ScaleSpaceConfig(sigma_levels=tuple(fcfg.sigma_levels))))
-    return {"diffuse_segment": n_k1 * n_oct, "response_levels": 2 * n_oct,
+    return {"diffuse_segment": n_k1 * n_oct, "response_levels": n_oct,
             "describe_upright": n_oct}
 
 
@@ -1607,15 +1699,21 @@ def phase_ba_crosscheck(dev) -> None:
 def phase_tune(dev, smi: str) -> None:
     """The sweeps behind the kernels' constants.  K1: the four segments of
     the default config on a 32-image VGA batch and on its half-size octave,
-    for tiles and fused-step limits that fit the block's shared memory.  K6:
-    slot groups per point on the 512-camera problem and on one of the
-    96-frame build's size (tp = 64), call time by CUDA events and device
-    time by torch.profiler; then the host's time per call of K6's wrapper
-    and of its parts beside two small PyTorch ops."""
+    for tiles and fused-step limits that fit the block's shared memory.  K2:
+    tiles and threads a block on the same two shapes.  K4: the landmark tile
+    (64 or 128 rows), the depth of the ring and the number of splits, at the
+    serving batch's 32,768 query rows and at the burst tail's 2,048 against
+    133,120 landmarks of random unit descriptors, by CUDA events around the
+    launch and, for the tail, by torch.profiler (an event pair also times
+    the wrapper's host path).  K6: slot groups per point on the 512-camera
+    problem and on one of the 96-frame build's size (tp = 64), call time by
+    CUDA events and device time by torch.profiler; then the host's time per
+    call of K6's wrapper and of its parts beside two small PyTorch ops."""
     import torch
 
     from sfmx_torch.kernels import _build
     from sfmx_torch.kernels import features as F
+    from sfmx_torch.kernels import match as mt
     from sfmx_torch.kernels import scale_space as ss
     from sfmx_torch.kernels import segsum as sg
     from sfmx_torch.solvers import schur
@@ -1647,6 +1745,49 @@ def phase_tune(dev, smi: str) -> None:
         log(f"[tune] K1 B={shape[0]} {shape[1]}x{shape[2]}, all 4 segments, ms by (tile, most "
             f"fused steps, launches), best first: "
             + "; ".join(f"{ms:.3f} {t[0]}x{t[1]} {mf} {n}" for ms, t, mf, n in rows) + f"; on {smi}")
+
+    for shape in ((SERVE_BATCH, H_IMG, W_IMG), (SERVE_BATCH, H_IMG // 2, W_IMG // 2)):
+        levels = torch.rand((shape[0], cfg.n_levels, *shape[1:]), generator=g).to(dev)
+        rows = []
+        for tile in ((48, 128), (32, 128), (64, 128), (40, 128), (56, 128), (24, 128), (48, 96),
+                     (48, 160), (32, 64), (96, 128)):
+            if ss._response_bytes(max(cfg.sigma_levels), *tile) > ss.SMEM_BYTES:
+                continue
+            for threads in (128, 256, 512, 1024):
+                ms = cuda_ms(lambda: ss._response_fused(levels, cfg.sigma_levels, *tile, threads),
+                             reps=5, warm=1)
+                rows.append((ms, tile, threads))
+        rows.sort()
+        log(f"[tune] K2 B={shape[0]} {shape[1]}x{shape[2]}, {cfg.n_levels} levels, ms by (tile, "
+            f"threads), best first: "
+            + "; ".join(f"{ms:.3f} {t[0]}x{t[1]} {th}" for ms, t, th in rows) + f"; on {smi}")
+
+    def unit_bf16(n):
+        x = torch.randn((n, 128), generator=g)
+        return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dev).bfloat16().contiguous()
+
+    Kb = 133120
+    pool = unit_bf16(Kb)
+    for Ka, split_set in ((SERVE_BATCH * 1024, (1, 2)), (N_TAIL * 1024, (1, 2, 4, 8, 12, 16, 24, 32, 64))):
+        q = unit_bf16(Ka)
+        rows = []
+        for tile_rows in (64, 128):
+            for stages in (2, 3, 4, 5, 6, 8):
+                if stages * tile_rows * 256 + 1024 > ss.SMEM_BYTES:
+                    continue
+                for splits in split_set:
+                    def run(tile_rows=tile_rows, stages=stages, splits=splits):
+                        mt._match_top2_cuda(q, pool, splits, tile_rows, stages)
+
+                    ms = cuda_ms(run, reps=5, warm=1)
+                    ms_dev = device_ms_per_run(run, 5)[0] if Ka < 4096 else float("nan")
+                    rows.append((ms, ms_dev, tile_rows, stages, splits))
+        rows.sort()
+        flop = 2.0 * Ka * Kb * 128
+        log(f"[tune] K4 {Ka} x {Kb} x 128 bf16 ({flop / rows[0][0] / 1e9:.1f} TFLOP/s at the best), "
+            f"ms by CUDA events (device ms by torch.profiler) for (tile rows, stages, splits), "
+            f"best first: " + "; ".join(f"{ms:.3f} ({md:.3f}) {t} {st} {sp}"
+                                        for ms, md, t, st, sp in rows) + f"; on {smi}")
 
     for tag, (C, P, O, tp, window, longs) in {"512 cameras": (512, 20000, 200000, 32, 16, 0),
                                               "build-sized": (96, 2267, 36000, 64, 24, 100)}.items():
@@ -1739,7 +1880,7 @@ def main() -> int:
     # launches) and the tail batch of the two own-intrinsics requests
     kstats = phase_kernels(serve_frames[:SERVE_BATCH], dev)
     phase_kernels(own_frames, dev)
-    kstats["match_top2"] = phase_k4(big, serve_frames, dev)
+    kstats["match_top2"] = phase_k4(big, serve_frames, dev, smi, profile)
     serve_launches = phase_serve(big, serve_frames, own_frames, dev, smi)
     s_extract, s_localize, s_state = streaming_path(serve_frames, big, dev)
     phase_streaming_crosscheck(big, s_state, dev)

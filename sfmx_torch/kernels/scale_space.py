@@ -13,6 +13,12 @@ that wraps indices), runs up to ``MAX_FUSED`` steps there and keeps the
 tile's interior.  ``fused_chunks`` cuts a segment into such launches and
 ``diffuse_segment_tiled`` mirrors the decomposition in plain PyTorch for the
 CPU tests.
+
+K2 is one launch for all levels: a block loads an output tile of
+``RESP_TILE_H x RESP_TILE_W`` pixels of one (image, level) plane with a halo
+of 2 d (d = the level's aperture), computes Lx and Ly on tile + halo d in
+shared memory and the determinant on the tile; ``response_levels_tiled``
+mirrors that for the CPU tests.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 
 from . import _build
 from .features import (ScaleSpaceConfig, _diffusion_step, contrast_k2,
-                       gaussian_blur, hessian_response, level_taus)
+                       gaussian_blur, hessian_response, level_taus, scharr_roll)
 
 LIB = "scale_space"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -33,7 +39,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_sfmx_typed", False):
         lib.ss_diffuse_fused.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         lib.ss_diffuse_fused.restype = _I
-        lib.ss_response_levels.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.ss_response_levels.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.ss_response_levels.restype = _I
         lib.ss_error_string.argtypes = [_I]
         lib.ss_error_string.restype = ctypes.c_char_p
@@ -168,25 +174,71 @@ def response_levels_plain(levels: torch.Tensor, sigma_levels: tuple) -> torch.Te
     return hessian_response(levels, ScaleSpaceConfig(tuple(sigma_levels)))
 
 
+# The output tile of one block and its threads, chosen by ``chip_smoke.py
+# --tune`` on a 32-image VGA batch.  Three shared-memory planes (the level on
+# tile + halo 2 d, Lx and Ly on tile + halo d) at the largest aperture must
+# fit the block: see ``_response_bytes``.
+RESP_TILE_H, RESP_TILE_W = 48, 128
+RESP_THREADS = 256
+
+
+def _response_bytes(d: int, tile_h: int, tile_w: int) -> int:
+    return 4 * ((tile_h + 4 * d) * (tile_w + 4 * d) + 2 * (tile_h + 2 * d) * (tile_w + 2 * d))
+
+
+def response_levels_tiled(levels: torch.Tensor, sigma_levels: tuple,
+                          tile: tuple = (RESP_TILE_H, RESP_TILE_W)) -> torch.Tensor:
+    """Plain-PyTorch mirror of the K2 kernel's decomposition, for tests: per
+    level (aperture d) and tile, load tile + halo 2 d with wrapped indices,
+    take Scharr twice on the padded tile and keep the interior.  Each Scharr
+    wraps inside the padded tile, which spoils d pixels from its border
+    inwards: together exactly the halo."""
+    B, L, H, W = levels.shape
+    th, tw = tile
+    out = torch.empty_like(levels)
+    for i, d in enumerate(int(s) for s in sigma_levels):
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                ys = torch.arange(y0 - 2 * d, y0 + th + 2 * d, device=levels.device) % H
+                xs = torch.arange(x0 - 2 * d, x0 + tw + 2 * d, device=levels.device) % W
+                Lx, Ly = scharr_roll(levels[:, i][:, ys][:, :, xs], dilation=d)
+                Lxx, Lxy = scharr_roll(Lx, dilation=d)
+                _, Lyy = scharr_roll(Ly, dilation=d)
+                det = Lxx * Lyy - Lxy * Lxy
+                h, w = min(th, H - y0), min(tw, W - x0)
+                out[:, i, y0:y0 + h, x0:x0 + w] = det[:, 2 * d:2 * d + h, 2 * d:2 * d + w]
+    return out
+
+
+def _response_fused(levels: torch.Tensor, sigma_levels: tuple, tile_h: int, tile_w: int,
+                    threads: int) -> torch.Tensor:
+    """The one launch of K2 on tiles of tile_h x tile_w."""
+    B, L, H, W = levels.shape
+    ds = [int(s) for s in sigma_levels]
+    if len(ds) != L or min(ds) < 1:
+        raise ValueError(f"{len(ds)} apertures {ds} for {L} levels (each must be >= 1)")
+    need = _response_bytes(max(ds), tile_h, tile_w)
+    if need > SMEM_BYTES or tile_w + 4 * max(ds) > MAX_PLANE_W:
+        raise ValueError(f"response_levels: aperture {max(ds)} on a {tile_h}x{tile_w} tile needs "
+                         f"{need} B of shared memory (at most {SMEM_BYTES}) and plane rows of "
+                         f"{tile_w + 4 * max(ds)} (at most {MAX_PLANE_W})")
+    lib = _lib()
+    resp = torch.empty_like(levels)
+    err = lib.ss_response_levels(levels.data_ptr(), resp.data_ptr(), (ctypes.c_int * L)(*ds),
+                                 B, L, H, W, tile_h, tile_w, threads,
+                                 _build.stream_ptr(levels.device))
+    _raise_on(lib, err, "response_levels")
+    _build.LAUNCHES.add("response_levels", 1)
+    return resp
+
+
 def response_levels(levels: torch.Tensor, sigma_levels: tuple) -> torch.Tensor:
-    """K2: det-Hessian response of all levels (B,L,H,W), aperture d = sigma."""
+    """K2: det-Hessian response of all levels (B,L,H,W), aperture d = sigma,
+    in one launch.  Any image size: the tile load wraps."""
     if levels.device.type == "cpu":
         return response_levels_plain(levels, sigma_levels)
     _check_cuda(levels, "levels", 4)
-    B, L, H, W = levels.shape
-    if len(sigma_levels) != L:
-        raise ValueError(f"{len(sigma_levels)} apertures for {L} levels")
-    lib = _lib()
-    resp = torch.empty_like(levels)
-    lx = torch.empty_like(levels)
-    ly = torch.empty_like(levels)
-    ds = (ctypes.c_int * L)(*[int(s) for s in sigma_levels])
-    err = lib.ss_response_levels(levels.data_ptr(), resp.data_ptr(), lx.data_ptr(),
-                                 ly.data_ptr(), ds, B, L, H, W,
-                                 _build.stream_ptr(levels.device))
-    _raise_on(lib, err, "response_levels")
-    _build.LAUNCHES.add("response_levels", 2)             # gradients, then det
-    return resp
+    return _response_fused(levels, sigma_levels, RESP_TILE_H, RESP_TILE_W, RESP_THREADS)
 
 
 def build_scale_space_and_response(images: torch.Tensor, cfg: ScaleSpaceConfig):

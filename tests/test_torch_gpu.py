@@ -92,15 +92,37 @@ def test_k1_one_launch_on_other_tiles(cuda, tile, n):
         ss._diffuse_fused(L, k2, F.level_taus(CFG)[3], 120, 160)
 
 
-def test_k2_response_levels_matches_plain(cuda):
-    """All five apertures in one call of two launches: atol 1e-6 (responses
-    peak near 1e-2)."""
-    levels, _ = ss.build_scale_space_and_response(_images(cuda), CFG)
+# two tiles each way; no tile multiple; an image smaller than the halo of the
+# largest aperture (the load wraps several times); several ragged tiles
+K2_SHAPES = [(3, 120, 160), (2, 97, 131), (2, 10, 14), (1, 200, 300)]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_k2_response_levels_matches_plain(cuda, shape):
+    """All five apertures in one call of one launch, small and ragged sizes
+    included: atol 1e-6 (responses peak near 1e-2)."""
+    levels, _ = ss.build_scale_space_and_response(_images(cuda, *shape), CFG)
     before = _build.LAUNCHES.get("response_levels")
     out = ss.response_levels(levels, CFG.sigma_levels)
-    assert _build.LAUNCHES.get("response_levels") == before + 2
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("response_levels") == before + 1
     ref = ss.response_levels_plain(levels, CFG.sigma_levels)
     assert float((out - ref).abs().max()) <= 1e-6
+    assert float(ref.abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("tile,threads", [((32, 128), 512), ((16, 24), 64), ((1, 32), 32),
+                                          ((130, 100), 1024)])
+def test_k2_one_launch_on_other_tiles(cuda, tile, threads):
+    """The kernel takes its tile and its threads at run time (the wrapper's
+    constants are one choice): other choices that fit the block's shared
+    memory give the same response (atol 1e-6), one that does not fit raises."""
+    levels, _ = ss.build_scale_space_and_response(_images(cuda, 2, 150, 210), CFG)
+    out = ss._response_fused(levels, CFG.sigma_levels, *tile, threads)
+    torch.cuda.synchronize()
+    assert float((out - ss.response_levels_plain(levels, CFG.sigma_levels)).abs().max()) <= 1e-6
+    with pytest.raises(ValueError):
+        ss._response_fused(levels, CFG.sigma_levels, 200, 160, 256)
 
 
 @pytest.mark.parametrize("edge", [False, True])
@@ -167,27 +189,63 @@ def _check_top2(out, ref, atol=1e-5):
     return int((i1[~clear] != j1[~clear]).sum())
 
 
-@pytest.mark.parametrize("Ka,Kb,D", [(256, 2048, 128), (777, 4096, 128), (512, 6144, 64)])
+@pytest.mark.parametrize("Ka,Kb,D", [(256, 2048, 128), (777, 4096, 128), (512, 6144, 64),
+                                     (256, 133120, 128), (2048, 133120, 128)])
 def test_k4_match_top2_matches_plain(cuda, Ka, Kb, D):
-    """Random unit rows with planted exact duplicates (ties go to the lower
+    """Random unit rows with planted exact duplicates (across the boundaries
+    of the automatic split and of 2, 5 and 16 splits; ties go to the lower
     index, s2 == s1), zero rows and a query row equal to a landmark: s1/s2
-    atol 1e-5, i1 equal outside near-ties; one launch counted."""
+    atol 1e-5, i1 equal outside near-ties; every split count gives the
+    unsplit kernel's result bit for bit; launches as the wrapper says (1
+    without a split, 2 with one).  The last two shapes take the split path by
+    themselves."""
     g = torch.Generator().manual_seed(Ka + Kb)
     a, b = _unit_rows(g, Ka, D), _unit_rows(g, Kb, D)
+    n_auto, per = mt.split_plan(Ka, Kb)
+    edge = per * mt.TILE_ROWS if n_auto > 1 else Kb // 2    # a split boundary
     b[Kb - 70] = b[33]
     b[Kb - 1] = b[1500 % Kb]
-    a[5], a[6] = b[33], b[Kb - 1]
-    b[100:164] = 0.0
+    b[edge] = b[edge - 1]
+    b[Kb // 5] = b[Kb // 5 - 1]
+    a[5], a[6], a[8], a[9] = b[33], b[Kb - 1], b[edge - 1], b[Kb // 5 - 1]
+    b[300:364] = 0.0
     a[7] = 0.0
+    da, db = a.to(cuda), b.to(cuda)
     before = _build.LAUNCHES.get("match_top2")
-    out = mt.match_top2(a.to(cuda), b.to(cuda), tile_a=1, tile_b=64)
+    out = mt.match_top2(da, db, tile_a=1, tile_b=128)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES.get("match_top2") == before + 1
-    ref = mt.match_top2_plain(a.to(cuda), b.to(cuda), max_elems=Ka * 1000)
+    assert _build.LAUNCHES.get("match_top2") == before + mt.match_top2_launches(Ka, Kb)
+    assert mt.match_top2_launches(Ka, Kb) == (2 if n_auto > 1 else 1)
+    ref = mt.match_top2_plain(da, db, max_elems=Ka * 1000)
     _check_top2(out, ref)
     assert int(out[1][5]) == 33 and float(out[0][5]) == float(out[2][5])
     assert int(out[1][6]) == 1500 % Kb
+    assert int(out[1][8]) == edge - 1 and float(out[0][8]) == float(out[2][8])
+    assert int(out[1][9]) == Kb // 5 - 1 and float(out[0][9]) == float(out[2][9])
     _check_top2(out, mt.match_top2_plain(a, b))
+    for splits in (1, 2, 5, 16):
+        before = _build.LAUNCHES.get("match_top2")
+        other = mt.match_top2(da, db, tile_a=1, tile_b=128, splits=splits)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES.get("match_top2") == before + mt.match_top2_launches(Ka, Kb, splits)
+        for x, y in zip(other, out):
+            assert torch.equal(x, y), splits
+
+
+@pytest.mark.parametrize("tile_rows,stages", [(64, 2), (64, 7), (128, 3), (128, 4)])
+def test_k4_other_tiles_and_stages(cuda, tile_rows, stages):
+    """The kernel takes its landmark tile (64 or 128 rows) and the depth of
+    its ring at run time (the library's defaults are one choice): the same
+    result as the default's bit for bit, split or not."""
+    g = torch.Generator().manual_seed(tile_rows + stages)
+    a = _unit_rows(g, 384).to(cuda).bfloat16().contiguous()
+    b = _unit_rows(g, 8192).to(cuda).bfloat16().contiguous()
+    base = mt._match_top2_cuda(a, b, 1)
+    for splits in (1, 3):
+        out = mt._match_top2_cuda(a, b, splits, tile_rows, stages)
+        torch.cuda.synchronize()
+        for x, y in zip(out, base):
+            assert torch.equal(x, y)
 
 
 def test_k4_match_float_streaming_on_card_matches_cpu(cuda):
@@ -211,17 +269,24 @@ def test_k4_match_float_streaming_on_card_matches_cpu(cuda):
 
 
 def test_k4_rejects_bad_inputs(cuda):
-    """D > 128, a pool that is not a multiple of the kernel's 64-row tile,
-    mixed devices and integer inputs raise; nothing falls back."""
+    """D > 128, a pool that is not a multiple of the kernel's landmark tile
+    (``match.TILE_ROWS``), mixed devices, integer inputs, a tile or a ring
+    depth the kernel does not have raise; nothing falls back."""
     a = torch.zeros(256, 128, device=cuda)
     with pytest.raises(ValueError):
         mt.match_top2(torch.zeros(256, 160, device=cuda), torch.zeros(2048, 160, device=cuda))
     with pytest.raises(ValueError):
-        mt.match_top2(a, torch.zeros(96, 128, device=cuda), tile_b=32)
+        mt.match_top2(a, torch.zeros(3 * mt.TILE_ROWS // 2, 128, device=cuda),
+                      tile_b=mt.TILE_ROWS // 2)
     with pytest.raises(ValueError):
         mt.match_top2(a, torch.zeros(2048, 128))
     with pytest.raises(ValueError):
         mt.match_top2(a.int(), torch.zeros(2048, 128, device=cuda, dtype=torch.int32))
+    a16, b16 = a.bfloat16(), torch.zeros(2048, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        mt._match_top2_cuda(a16, b16, 1, 32, 4)           # no 32-row tile
+    with pytest.raises(RuntimeError):
+        mt._match_top2_cuda(a16, b16, 1, 128, 8)          # the ring would not fit the block
 
 
 def _pair_descs(g, C, K, D=128, planted=96):
