@@ -4,8 +4,9 @@ front-end and reconstruction paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (``python3 chip_smoke.py --tune`` runs instead the sweeps behind K1's tile
-and fused-step constants, K2's tile, K4's landmark tile, ring depth and
-splits, and K6's slot groups, and prints no result lines.)
+and fused-step constants, K2's tile, K3's keypoints per block, K4's landmark
+tile, ring depth and splits, K6's slot groups and K8's slot groups and
+camera-table staging, and prints no result lines.)
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
@@ -17,6 +18,7 @@ Phases (each asserts; any failure exits non-zero):
                   max abs error beside the stated tolerance, CUDA-event times;
                   again at the serving run's batches (B=32 and the B=2 tail)
                   after phase 8, and the B=32 numbers go in the kernels line
+                  (with --profile K3's device time per call by torch.profiler)
   4. map        — renders 24 keyframes of the textured room (640x480,
                   f=560), extracts them on the card, back-projects every
                   valid keypoint onto the room box at the true pose, and
@@ -96,9 +98,10 @@ Phases (each asserts; any failure exits non-zero):
                   points and 200,000 observations (tp = 32 slots per point,
                   30 CG steps): K7, K6 and K8 against their plain versions
                   (errors relative to the largest entry beside the stated
-                  tolerances), CUDA-event times (phase 18 repeats this at
-                  the build's own shapes, whose numbers go into the kernels
-                  line), LM iterations/s of
+                  tolerances), CUDA-event times, with --profile K6's and
+                  K8's device time per call by torch.profiler (phase 18
+                  repeats this at the build's own shapes, whose numbers go
+                  into the kernels line), LM iterations/s of
                   ``ba_solve(dense_cg=True)`` beside the planes path, and
                   the same dense solve twice (bit-identical or not); with
                   --profile the solve's device ms and busy share
@@ -108,8 +111,11 @@ Phases (each asserts; any failure exits non-zero):
                   Gates: 96/96 registered, median reprojection < 1 px, ATE
                   of the camera centers against the rendered poses < 0.1 m
                   after a similarity alignment, the final BA on the dense
-                  path, K6/K7/K8 launched with K6 = (cg_iters + 2) x K7; then
-                  K6-K8 against their plain versions on the final BA's table
+                  path, K6/K7/K8 launched with K6 = (cg_iters + 2) x K7 and
+                  K8 = K7 / 2 + dense BA calls (K7 is two launches a call,
+                  K8 one, once per LM iteration and once per solve); then
+                  K6-K8 against their plain versions on the final BA's
+                  table
  19. loop       — ``save_scene``, ``load_scene_np``,
                   ``build_localization_map`` from the built scene, and 16
                   held-out frames localized against it: median center error
@@ -238,6 +244,13 @@ def cuda_ms(fn, reps: int = 7, warm: int = 2) -> float:
     return float(np.median(times))
 
 
+def cuda_ms_per_call(fn, n: int = 20, reps: int = 5) -> float:
+    """Median over reps of the CUDA-event time of n calls back to back, per
+    call: past the first call the host's path overlaps the device's work,
+    so a short kernel's time is not its wrapper's."""
+    return cuda_ms(lambda: [fn() for _ in range(n)], reps=reps, warm=1) / n
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -276,9 +289,37 @@ def phase_build():
         f"native/tracks.cpp with g++ beside them)")
 
 
-def phase_kernels(images, dev) -> dict:
+def k3_read_bytes(levels, kp) -> int:
+    """The level bytes K3 must read for these keypoints: the union over the
+    batch's unmasked keypoints of the 2x2 neighbourhoods of their 24x24
+    samples, inside the level (the zero padding is not read).  The sampling
+    is separable, so a keypoint touches the outer product of its 48 sampled
+    rows and 48 sampled columns."""
+    import torch
+
+    from sfmx_torch.kernels import describe as dsc
+
+    B, L, H, W = levels.shape
+    K = kp.uv.shape[1]
+    Hp, Wp = dsc.padded_size(H, W)
+    y0, x0, fy, fx, sp = dsc._window_params(kp.uv, kp.sigma, Hp, Wp)
+    off = (torch.arange(24, dtype=torch.float32, device=levels.device) - 11.5) * sp[..., None]
+    xs = torch.clamp(x0.float()[..., None] + fx[..., None] + off, 0.0, Wp - 1.001)
+    ys = torch.clamp(y0.float()[..., None] + fy[..., None] + off, 0.0, Hp - 1.001)
+    cols = torch.stack([torch.floor(xs), torch.floor(xs) + 1], -1).long().reshape(B, K, 48)
+    rows = torch.stack([torch.floor(ys), torch.floor(ys) + 1], -1).long().reshape(B, K, 48)
+    plane = (torch.arange(B, device=levels.device)[:, None] * L + kp.level.long())   # (B,K)
+    idx = ((plane[..., None] * H + rows)[..., :, None] * W + cols[..., None, :])
+    ok = (kp.mask[..., None, None] & (rows < H)[..., :, None] & (cols < W)[..., None, :])
+    seen = torch.zeros(B * L * H * W, dtype=torch.bool, device=levels.device)
+    seen[idx[ok]] = True
+    return int(seen.sum()) * 4
+
+
+def phase_kernels(images, dev, profile: bool = False) -> dict:
     """K1-K3 vs their plain versions on a batch of the main path's inputs
-    (both octaves); returns octave 0's times and the larger error."""
+    (both octaves); returns octave 0's times and the larger error.  With
+    ``profile`` also K3's device time per call by torch.profiler."""
     import torch
 
     from sfmx_torch.kernels import describe as dsc
@@ -333,20 +374,28 @@ def phase_kernels(images, dev) -> dict:
                                  cuda_ms(lambda: dsc.describe_upright_reference(*args))),
         }
         errs = {"diffuse_segment": err1, "response_levels": err2, "describe_upright": err3}
+        b2b3 = cuda_ms_per_call(lambda: dsc.describe_upright(*args))
+        dev3 = ""
+        if profile:
+            ms_dev, note = launch_device_ms(lambda: dsc.describe_upright(*args), 10)
+            dev3 = f", device {ms_dev:.4f} ms per call by torch.profiler ({note})"
+        log(f"[kernels] describe_upright B={B} {H}x{W} K={K}: {b2b3:.4f} ms per call by CUDA events "
+            f"around 20 calls back to back{dev3}")
         shape = f"B={B} {H}x{W} L={cfg.n_levels} K={K}"
         # necessary work: K1 reads and writes one level per segment and does
         # ~30 FLOP per pixel and FED step (4 differences, 4 conductivities
         # with a division each, the flux sum, the update); K2 reads the
         # levels and writes one response each (~15 FLOP per pixel: three
-        # second differences and the determinant); K3 reads the smaller of
-        # all levels and its keypoints' 24x24 bilinear samples (~12 FLOP
-        # each) plus 5 keypoint fields, and writes 128 floats per keypoint
+        # second differences and the determinant); K3 reads the level pixels
+        # its keypoints' 24x24 bilinear samples touch (each once) plus 5
+        # keypoint fields, does ~12 FLOP a sample, and writes 128 floats per
+        # keypoint
         px, nl = B * H * W, levels.shape[1]
         n_kp = int(kp.mask.sum())
         bounds = {
             "diffuse_segment": bound(len(segs) * 2 * px * 4, 30.0 * px * sum(map(len, segs)), "f32"),
             "response_levels": bound(2 * nl * px * 4, 15.0 * nl * px, "f32"),
-            "describe_upright": bound(min(nl * px * 4, n_kp * 576 * 4) + B * K * (128 + 5) * 4,
+            "describe_upright": bound(k3_read_bytes(levels, kp) + B * K * (128 + 5) * 4,
                                       12.0 * 576 * n_kp, "f32"),
         }
         for name, err in errs.items():
@@ -540,13 +589,14 @@ def phase_rate(extract, localize, n_frames: int, smi: str, reps: int = 5,
     return wall
 
 
-def device_ms_per_run(fn, reps: int):
+def device_ms_per_run(fn, reps: int, counts: dict | None = None):
     """Run fn() reps times under torch.profiler.  Returns the device time per
     run in ms (the summed durations of every kernel, copy and fill the trace
     holds; the path runs on one stream, so they do not overlap; fn must not
     open a record_function range, whose device-side annotation would count
     as well), the device
-    time per run of each kernel name, and the profiler's table.  A trace
+    time per run of each kernel name, and the profiler's table; ``counts``,
+    where given, receives the number of traced events of each name.  A trace
     without any device event is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
@@ -560,13 +610,31 @@ def device_ms_per_run(fn, reps: int):
                 fn()
             torch.cuda.synchronize()
         by_name: dict[str, float] = {}
+        seen: dict[str, int] = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+                seen[e.name] = seen.get(e.name, 0) + 1
         if by_name:
             break
+    if counts is not None:
+        counts.update(seen)
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
     return sum(by_name.values()), by_name, table
+
+
+def launch_device_ms(fn, reps: int) -> tuple[float, str]:
+    """Device time per call of a wrapper that launches each of its kernels
+    once a call: the mean traced duration of each kernel, summed over its
+    kernels (a trace that lost launches still times those it holds), and a
+    note of each kernel's mean and how many of its reps launches the trace
+    holds."""
+    counts: dict[str, int] = {}
+    _ms, by_name, _table = device_ms_per_run(fn, reps, counts)
+    means = {k: t * reps / counts[k] for k, t in by_name.items()}
+    note = ", ".join(f"{t:.4f} {k.replace('(anonymous namespace)::', '').split('(')[0]} "
+                     f"({counts[k]} of {reps} traced)" for k, t in means.items())
+    return sum(means.values()), note
 
 
 def phase_profile(stages: dict, wall: float, smi: str, tag: str, n_frames: int,
@@ -1393,9 +1461,9 @@ def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str,
                      profile: bool = False) -> dict:
     """K7, K6 and K8 against their plain versions on the dense layout of one
     problem (tensors on the card under ``ba_solve``'s argument names), with
-    their times and bounds; with ``profile`` also K6's device time per call
-    apart from its call time.  Observations past slot tp of a point are left
-    out of the layout on both sides."""
+    their times and bounds; with ``profile`` also K6's and K8's device time
+    per call apart from their call times.  Observations past slot tp of a
+    point are left out of the layout on both sides."""
     import torch
 
     from sfmx_torch.kernels import segsum as sg
@@ -1449,10 +1517,8 @@ def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str,
     dev6 = ""
     if profile:
         # the event pair around one call times the wrapper's host gaps too
-        ms_dev, by_name, _table = device_ms_per_run(lambda: cross(xv), 20)
-        dev6 = (f"; device {ms_dev:.4f} ms per call by torch.profiler ("
-                + ", ".join(f"{t:.4f} {k.replace('(anonymous namespace)::', '').split('(')[0]}"
-                            for k, t in by_name.items()) + ")")
+        ms_dev, note = launch_device_ms(lambda: cross(xv), 20)
+        dev6 = f"; device {ms_dev:.4f} ms per call by torch.profiler ({note})"
     log(f"[BA kernels] {tag}: K6 schur_cross_matvec: relative error {e6:.3e} (tol {tol6:.0e}), max abs "
         f"{abs6:.3e}; kernel {ms6:.4f} ms by CUDA events around one call of the bound system "
         f"({n_dense * 72 / ms6 / 1e6:.1f} GB/s of W; {ms6_once:.4f} ms through the one-shot wrapper, "
@@ -1469,18 +1535,35 @@ def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str,
     cams = torch.cat([sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"],
                                          prob["t"] + 0.01 * c) for c in range(nc)], 0)
     xs = torch.cat([(prob["X"] + 0.005 * c).T for c in range(nc)], 0).contiguous()
-    got = sg.ba_cost_fused(cams, dense, uvw, xs, delta, nc=nc)
+    # bound to the layout once, as ba_solve binds it
+    cost = sg.CostFused(dense, uvw)
+    got = cost(cams, xs, delta, nc)
     ref = sg.ba_cost_fused_plain(cams, dense.camp, uvw, xs, delta, nc)
     torch.cuda.synchronize()
     e8 = float(((got - ref).abs() / ref).max())
     abs8 = float((got - ref).abs().max())
     tol8 = KERNELS["ba_cost_fused"][2]
-    ms8 = cuda_ms(lambda: sg.ba_cost_fused(cams, dense, uvw, xs, delta, nc=nc))
+    ms8 = cuda_ms(lambda: cost(cams, xs, delta, nc), reps=21, warm=3)
+    b2b8 = cuda_ms_per_call(lambda: cost(cams, xs, delta, nc))
+    ms8_once = cuda_ms(lambda: sg.ba_cost_fused(cams, dense, uvw, xs, delta, nc=nc), reps=21, warm=3)
     p8 = cuda_ms(lambda: sg.ba_cost_fused_plain(cams, dense.camp, uvw, xs, delta, nc), reps=3, warm=1)
-    log(f"[BA kernels] {tag}: K8 ba_cost_fused nc={nc}: relative error {e8:.3e} (tol {tol8:.0e}), max "
-        f"abs {abs8:.3e} of costs {[float(f'{c:.4f}') for c in ref.tolist()]}; kernel {ms8:.3f} ms, "
-        f"plain {p8:.3f} ms on {smi}")
+    # the LM loop's invariants: the same bits from a second call, and a
+    # candidate's cost the same from an nc = 1 launch as from its place here
+    again = sg.ba_cost_fused(cams, dense, uvw, xs, delta, nc=nc)
+    alone = [cost(cams[19 * c:19 * c + 19], xs[3 * c:3 * c + 3], delta, 1) for c in range(nc)]
+    same8 = torch.equal(got, again) and all(torch.equal(got[c:c + 1], a) for c, a in enumerate(alone))
+    dev8 = ""
+    if profile:
+        ms_dev, note = launch_device_ms(lambda: cost(cams, xs, delta, nc), 20)
+        dev8 = f"; device {ms_dev:.4f} ms per call by torch.profiler ({note})"
+    log(f"[BA kernels] {tag}: K8 ba_cost_fused nc={nc} ({sg.cost_slot_groups(tp, P)} slot groups): "
+        f"relative error {e8:.3e} (tol {tol8:.0e}), max abs {abs8:.3e} of costs "
+        f"{[float(f'{c:.4f}') for c in ref.tolist()]}; kernel {ms8:.4f} ms by CUDA events around "
+        f"one call bound to the layout ({ms8_once:.4f} ms through the one-shot wrapper, {b2b8:.4f} "
+        f"ms per call over 20 back to back){dev8}; "
+        f"plain {p8:.3f} ms; two calls and each candidate alone bit-equal {same8}; on {smi}")
     assert e8 <= tol8, f"K8 relative error {e8}"
+    assert same8, "K8: a candidate's cost changed between calls or with nc and its place"
     out["ba_cost_fused"] = {
         "max_abs_err": abs8, "max_rel_err": e8, "ms": ms8, "plain_ms": p8,
         **bound(n_dense * (12 + 4) + nc * (P * 12 + C * 76 + 4), 60.0 * nc * n_dense, "f32")}
@@ -1705,13 +1788,19 @@ def phase_tune(dev, smi: str) -> None:
     serving batch's 32,768 query rows and at the burst tail's 2,048 against
     133,120 landmarks of random unit descriptors, by CUDA events around the
     launch and, for the tail, by torch.profiler (an event pair also times
-    the wrapper's host path).  K6: slot groups per point on the 512-camera
-    problem and on one of the 96-frame build's size (tp = 64), call time by
-    CUDA events and device time by torch.profiler; then the host's time per
-    call of K6's wrapper and of its parts beside two small PyTorch ops."""
+    the wrapper's host path).  K3: keypoints (warps) per block on both
+    octaves of a 32-image VGA batch of random levels, 1,024 and 512
+    keypoints an image at the octave's sigmas.  K6: slot groups per point on
+    the 512-camera problem and on one of the 96-frame build's size (tp =
+    64), call time by CUDA events and device time by torch.profiler; K8 on
+    the same two problems (four candidates, as an LM iteration calls it):
+    slot groups, with the camera tables staged in shared memory and read
+    through the cache; then the host's time per call of K6's wrapper and of
+    its parts beside two small PyTorch ops."""
     import torch
 
     from sfmx_torch.kernels import _build
+    from sfmx_torch.kernels import describe as dsc
     from sfmx_torch.kernels import features as F
     from sfmx_torch.kernels import match as mt
     from sfmx_torch.kernels import scale_space as ss
@@ -1762,6 +1851,25 @@ def phase_tune(dev, smi: str) -> None:
             f"threads), best first: "
             + "; ".join(f"{ms:.3f} {t[0]}x{t[1]} {th}" for ms, t, th in rows) + f"; on {smi}")
 
+    for shape, K in (((SERVE_BATCH, H_IMG, W_IMG), 1024), ((SERVE_BATCH, H_IMG // 2, W_IMG // 2), 512)):
+        B, H, W = shape
+        levels = torch.rand((B, cfg.n_levels, H, W), generator=g).to(dev)
+        lvl = torch.randint(0, cfg.n_levels, (B, K), generator=g)
+        uv = (torch.rand((B, K, 2), generator=g) * torch.tensor([W - 1.0, H - 1.0])).to(dev)
+        sigma = torch.as_tensor(cfg.sigmas)[lvl].to(dev)
+        mask = torch.ones((B, K), dtype=torch.bool, device=dev)
+        args = (levels, uv, lvl.to(dev), sigma, mask)
+        rows = []
+        for kpb in (1, 2, 4, 6, 8, 12, 16):
+            ms = cuda_ms_per_call(lambda: dsc.describe_upright(*args, keypoints_per_block=kpb))
+            ms_dev = device_ms_per_run(lambda: dsc.describe_upright(*args, keypoints_per_block=kpb),
+                                       5)[0]
+            rows.append((ms, ms_dev, kpb))
+        rows.sort()
+        log(f"[tune] K3 B={B} {H}x{W} K={K}, ms per call by CUDA events around 20 calls back to "
+            f"back (device ms by torch.profiler) by keypoints per block, best first: "
+            + "; ".join(f"{ms:.4f} ({md:.4f}) {kpb}" for ms, md, kpb in rows) + f"; on {smi}")
+
     def unit_bf16(n):
         x = torch.randn((n, 128), generator=g)
         return (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).to(dev).bfloat16().contiguous()
@@ -1807,6 +1915,23 @@ def phase_tune(dev, smi: str) -> None:
                          + " + ".join(f"{t:.4f}" for t in by_name.values()) + ")")
         log(f"[tune] K6 {tag} C={C} P={P} O={int(dense.cnt.sum())} tp={tp} (longest track "
             f"{int(dense.cnt.max())}), ms by slot groups: " + "; ".join(parts) + f"; on {smi}")
+        nc = 4
+        cams = torch.cat([sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"],
+                                             prob["t"] + 0.01 * c) for c in range(nc)], 0)
+        xs = torch.cat([(prob["X"] + 0.005 * c).T for c in range(nc)], 0).contiguous()
+        cost8 = sg.CostFused(dense, uvw)
+        rows = []
+        for groups in (1, 2, 4, 8, 16):
+            for stage in (True, False):
+                def k8(groups=groups, stage=stage):
+                    cost8(cams, xs, 0.008, nc, groups=groups, stage=stage)
+
+                rows.append((device_ms_per_run(k8, 20)[0], cuda_ms(k8, reps=21, warm=3), groups, stage))
+        rows.sort()
+        log(f"[tune] K8 {tag} nc={nc} (camera tables {19 * nc * C * 4 / 1024:.1f} KB), device ms by "
+            f"torch.profiler [call ms by CUDA events] by (slot groups, "
+            f"tables staged), best first: "
+            + "; ".join(f"{md:.4f} [{ms:.4f}] {gr} {st}" for md, ms, gr, st in rows) + f"; on {smi}")
 
     # where a call's host time goes (the last system above): the CUDA-event
     # time of one K6 call is the host's path to its second launch
@@ -1826,6 +1951,8 @@ def phase_tune(dev, smi: str) -> None:
     probes = {
         "bound K6 call": lambda: cross(xv),
         "one-shot K6 wrapper": lambda: sg.schur_cross_matvec(Wp, dense, cross.Vinv9, xv),
+        "one-shot K8 wrapper, nc=4": lambda: sg.ba_cost_fused(cams, dense, uvw, xs, 0.008, nc=nc),
+        "bound K8 call, nc=4": lambda: cost8(cams, xs, 0.008, nc),
         "two torch.empty": lambda: (torch.empty((3, P), dtype=f32, device=dev),
                                     torch.empty((6, C), dtype=f32, device=dev)),
         "torch.cuda.current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
@@ -1878,8 +2005,8 @@ def main() -> int:
     # K1-K3 again at the serving run's batch shapes: a full batch of 32 (its
     # errors and times go into the kernels line beside the serving-run
     # launches) and the tail batch of the two own-intrinsics requests
-    kstats = phase_kernels(serve_frames[:SERVE_BATCH], dev)
-    phase_kernels(own_frames, dev)
+    kstats = phase_kernels(serve_frames[:SERVE_BATCH], dev, profile)
+    phase_kernels(own_frames, dev, profile)
     kstats["match_top2"] = phase_k4(big, serve_frames, dev, smi, profile)
     serve_launches = phase_serve(big, serve_frames, own_frames, dev, smi)
     s_extract, s_localize, s_state = streaming_path(serve_frames, big, dev)

@@ -62,9 +62,9 @@ def _stage_key(name: str, *parts) -> str:
 
 class StageCache:
     """Content-addressed stage outputs on disk (idempotent pipeline re-runs).
-    Cached MatchResults decode onto ``device``."""
+    Cached MatchResults decode onto ``device``, which the caller names."""
 
-    def __init__(self, workdir: str | Path | None, device="cpu"):
+    def __init__(self, workdir: str | Path | None, device):
         self.dir = Path(workdir) / "stages" if workdir else None
         self.device = torch.device(device)
         if self.dir:

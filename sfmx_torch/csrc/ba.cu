@@ -20,21 +20,21 @@
 // intermediate in registers.
 //
 // Design:
-//   * Point side of K7 and K8: one thread per point loops over its slots.
+//   * Point side of K7: one thread per point loops over its slots.
 //     Adjacent threads read adjacent addresses of every W / uvw / camp row,
 //     so the streams coalesce; the sums over a point's observations (V,
 //     b_p, cost) stay in registers and need no scatter.  The camera of a
 //     slot is read by index from the small per-camera table, which stays in
 //     cache: the TPU kernels' one-hot matmuls, their hi/lo bf16 split and
 //     their per-tile camera window have no counterpart here.
-//   * Point side of K6, which runs 32 times per LM iteration and whose time
-//     followed the longest track when a thread walked its point's slots
+//   * Point side of K6, which runs 32 times per LM iteration, and K8, whose
+//     time followed the longest track when a thread walked its point's slots
 //     alone: a point's slots are SPLIT ACROSS THREADS.  A block is 32
 //     adjacent points (x, so every row of W still coalesces) by G slot
 //     groups (y); thread (x, y) takes slots y, y+G, ...  The G partial sums
-//     of y = W^T x meet in shared memory and are added in group order, so
-//     tp dependent gather rounds become tp / G and the grid grows G-fold
-//     on small problems.
+//     of y = W^T x (K8: of each candidate's cost) meet in shared memory and
+//     are added in group order, so tp dependent gather rounds become tp / G
+//     and the grid grows G-fold on small problems.
 //   * Camera side (K6: z = sum W vy, K7: U and b_c): the TPU kernels
 //     accumulate across a sequential grid; CUDA blocks run in no order.
 //     Chosen here: a SECOND, CAMERA-MAJOR launch and no atomics.  Why not
@@ -63,7 +63,7 @@
 
 namespace {
 
-constexpr int PT_THREADS = 128;   // K7, K8 point-major kernels: threads (= points) per block
+constexpr int PT_THREADS = 128;   // K7 point pass: threads (= points) per block
 constexpr int CAM_THREADS = 128;  // camera-major kernels: threads per camera block
 constexpr int MAX_NC = 16;        // K8: parameter candidates per launch
 
@@ -386,35 +386,81 @@ assemble_cam_kernel(const float* __restrict__ cam19, const int* __restrict__ cam
 }
 
 // ---------------------------------------------------------------------------
-// K8: robust cost of nc parameter candidates in one pass over the slots
+// K8: robust cost of nc parameter candidates in one pass over the slots;
+//     the last block to finish adds the blocks' partials in block order
 // ---------------------------------------------------------------------------
 // Replaces ba_cost_fused (segsum.py, _cost_kernel).  Bound by bytes (O*16 B
-// read once for all candidates, ~60 FLOP per observation and candidate).
-// Point pass only: each thread writes its point's partial costs and the
-// wrapper sums them, in a fixed order, so there is no camera-side sum.
+// read once for all candidates, ~60 FLOP per observation and candidate),
+// but on the problems BA solves the time is latency: a thread per point
+// walked up to tp slots, each a dependent chain camp -> camera -> projection
+// -> Huber for every candidate.  Now a block is 32 adjacent points (x, so
+// every camp / uvw row still coalesces) by G slot groups (y); thread (x, y)
+// reads each of slots y, y+G, ... once and evaluates all nc candidates from
+// it.  The candidates' camera tables are staged in shared memory when they
+// fit the wrapper's limit, else read through the read-only cache.  The G
+// partial costs of a point meet in shared memory and are added in group
+// order, the block's 32 points by a fixed shuffle tree.  Blocks run in no
+// order, so each writes its partials to a scratch and takes a ticket (an
+// integer atomic); the block that takes the last one adds all blocks'
+// partials with a fixed strided walk and tree, and resets the ticket for
+// the next launch.  One launch, and no float atomics: the cost is the same
+// bits from run to run, and a candidate's
+// cost does not depend on nc or on its place among the candidates (its
+// arithmetic and its order of sums are its own), so the LM loop compares
+// costs from nc = 1 and nc = 4 launches on equal terms.
 
-__global__ void __launch_bounds__(PT_THREADS)
-cost_kernel(const float* __restrict__ cam19s, const int* __restrict__ camp,
-            const int* __restrict__ cnt, const float* __restrict__ uvw,
-            const float* __restrict__ x3s, float delta, float* __restrict__ cost_out,
-            int tp, int P, int C, int nc) {
-  const int p = blockIdx.x * PT_THREADS + threadIdx.x;
-  if (p >= P) return;
-  float cost[MAX_NC];
+constexpr int CO_LANES = 32;      // points per block of the K8 point pass
+constexpr int CO_MAX_GROUPS = 16; // slot groups (warps) per block of the K8 point pass
+
+__device__ __forceinline__ float warp_tree_sum(float v) {
 #pragma unroll
-  for (int i = 0; i < MAX_NC; ++i) cost[i] = 0.0f;
-  const int n = min(cnt[p], tp);
-  for (int j = 0; j < n; ++j) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// NCM candidates at most (the unrolled copies); STAGE: camera tables in shared memory
+template <int NCM, bool STAGE>
+__global__ void __launch_bounds__(CO_LANES * CO_MAX_GROUPS)
+cost_point_kernel(const float* __restrict__ cam19s, const int* __restrict__ camp,
+                  const int* __restrict__ cnt, const float* __restrict__ uvw,
+                  const float* __restrict__ x3s, float delta, float* __restrict__ part_out,
+                  unsigned int* __restrict__ ticket, float* __restrict__ cost_out,
+                  int tp, int P, int C, int nc) {
+  extern __shared__ float sm[];     // [19*nc*C camera tables if STAGE] [(G, nc, 32) partials]
+  const int lane = threadIdx.x, g = threadIdx.y, G = blockDim.y;
+  const int p = blockIdx.x * CO_LANES + lane;
+  const float* cams = cam19s;
+  float* part = sm;
+  if (STAGE) {
+    const int n_cam = 19 * nc * C;
+    for (int k = g * CO_LANES + lane; k < n_cam; k += G * CO_LANES) sm[k] = cam19s[k];
+    cams = sm;
+    part = sm + n_cam;
+    __syncthreads();
+  }
+  const int n = p < P ? min(cnt[p], tp) : 0;
+  float x[NCM][3], cost[NCM];
+#pragma unroll
+  for (int i = 0; i < NCM; ++i) {
+    cost[i] = 0.0f;
+    x[i][0] = x[i][1] = x[i][2] = 0.0f;
+    if (i < nc && p < P) {
+      const float* xp = x3s + (size_t)i * 3 * P + p;
+      x[i][0] = xp[0];
+      x[i][1] = xp[P];
+      x[i][2] = xp[2 * (size_t)P];
+    }
+  }
+  for (int j = g; j < n; j += G) {
     const int c = camp[(size_t)j * P + p];
     const float u = uvw[(size_t)(3 * j) * P + p];
     const float v = uvw[(size_t)(3 * j + 1) * P + p];
     const float wv = uvw[(size_t)(3 * j + 2) * P + p];
 #pragma unroll
-    for (int i = 0; i < MAX_NC; ++i) {
+    for (int i = 0; i < NCM; ++i) {
       if (i < nc) {
-        const Cam m = load_cam(cam19s + (size_t)i * 19 * C, C, c);
-        const float* x = x3s + (size_t)i * 3 * P;
-        const Proj q = project_residual(m, x[p], x[P + p], x[2 * (size_t)P + p], u, v);
+        const Cam m = load_cam(cams + (size_t)i * 19 * C, C, c);
+        const Proj q = project_residual(m, x[i][0], x[i][1], x[i][2], u, v);
         float rho, wh;
         huber(q.ru, q.rv, delta, rho, wh);
         cost[i] += 0.5f * rho * wv;
@@ -422,8 +468,58 @@ cost_kernel(const float* __restrict__ cam19s, const int* __restrict__ camp,
     }
   }
 #pragma unroll
-  for (int i = 0; i < MAX_NC; ++i)
-    if (i < nc) cost_out[(size_t)i * P + p] = cost[i];
+  for (int i = 0; i < NCM; ++i)
+    if (i < nc) part[(g * nc + i) * CO_LANES + lane] = cost[i];
+  __syncthreads();
+  // warp g sums candidates g, g+G, ...: its point's groups in order, then the 32 points
+  for (int i = g; i < nc; i += G) {
+    float s = part[i * CO_LANES + lane];
+    for (int q = 1; q < G; ++q) s += part[(q * nc + i) * CO_LANES + lane];
+    s = warp_tree_sum(s);
+    if (lane == 0) {
+      part_out[(size_t)i * gridDim.x + blockIdx.x] = s;
+      __threadfence();    // the partial reaches device memory before the ticket is taken
+    }
+  }
+  __syncthreads();
+  __shared__ bool last;
+  if (lane == 0 && g == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: warp g sums candidates g, g+G, ...; lane l adds blocks
+  // l, l+32, ... in order (read past L1: other SMs wrote them), then the tree
+  const int nb = gridDim.x;
+  for (int i = g; i < nc; i += G) {
+    float s = 0.0f;
+#pragma unroll 4
+    for (int b = lane; b < nb; b += 32) s += __ldcg(part_out + (size_t)i * nb + b);
+    s = warp_tree_sum(s);
+    if (lane == 0) cost_out[i] = s;
+  }
+  if (lane == 0 && g == 0) *ticket = 0u;
+}
+
+template <int NCM, bool STAGE>
+cudaError_t launch_cost(const float* cam19s, const int* camp, const int* cnt, const float* uvw,
+                        const float* x3s, float delta, float* part, unsigned int* ticket,
+                        float* out, int tp, int P, int C, int nc, int groups, cudaStream_t st) {
+  const size_t smem = ((STAGE ? (size_t)19 * nc * C : 0) + (size_t)groups * nc * CO_LANES) *
+                      sizeof(float);
+  static size_t allowed = 48 * 1024;  // dynamic shared memory above 48 KB needs the attribute
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cost_point_kernel<NCM, STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();             // a refused size is reported here, not by a later launch
+      return err;
+    }
+    allowed = smem;
+  }
+  cost_point_kernel<NCM, STAGE><<<(P + CO_LANES - 1) / CO_LANES, dim3(CO_LANES, groups), smem,
+                                  st>>>(cam19s, camp, cnt, uvw, x3s, delta, part, ticket, out, tp,
+                                        P, C, nc);
+  return cudaGetLastError();
 }
 
 inline int point_blocks(int P) { return (P + PT_THREADS - 1) / PT_THREADS; }
@@ -473,15 +569,27 @@ int ba_assemble(const float* cam19, const int* camp, const int* cnt, const float
   return cudaGetLastError();
 }
 
-// K8.  cam19s (19*nc, C), x3s (3*nc, P).  Writes cost_out (nc, P) per-point
-// partial costs (the wrapper sums over P).
+// K8.  cam19s (19*nc, C), x3s (3*nc, P).  Writes out (nc,).  part is a
+// scratch of nc * ceil(P/32) floats, ticket one zeroed counter that the
+// launch leaves at zero (calls that share them must share a stream).
+// `groups` (1..16) threads share a point's slots; `stage` puts the camera
+// tables in shared memory.  Returns cudaGetLastError().
 int ba_cost(const float* cam19s, const int* camp, const int* cnt, const float* uvw,
-            const float* x3s, float delta, float* cost_out, int tp, int P, int C, int nc,
-            void* stream) {
-  if (tp <= 0 || P <= 0 || C <= 0 || nc <= 0 || nc > MAX_NC) return cudaErrorInvalidValue;
-  cost_kernel<<<point_blocks(P), PT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      cam19s, camp, cnt, uvw, x3s, delta, cost_out, tp, P, C, nc);
-  return cudaGetLastError();
+            const float* x3s, float delta, float* out, float* part, unsigned int* ticket,
+            int tp, int P, int C, int nc, int groups, bool stage, void* stream) {
+  if (tp <= 0 || P <= 0 || C <= 0 || nc <= 0 || nc > MAX_NC || groups < 1 ||
+      groups > CO_MAX_GROUPS)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc <= 4)
+    return stage ? launch_cost<4, true>(cam19s, camp, cnt, uvw, x3s, delta, part, ticket, out, tp,
+                                        P, C, nc, groups, st)
+                 : launch_cost<4, false>(cam19s, camp, cnt, uvw, x3s, delta, part, ticket, out,
+                                         tp, P, C, nc, groups, st);
+  return stage ? launch_cost<MAX_NC, true>(cam19s, camp, cnt, uvw, x3s, delta, part, ticket, out,
+                                           tp, P, C, nc, groups, st)
+               : launch_cost<MAX_NC, false>(cam19s, camp, cnt, uvw, x3s, delta, part, ticket,
+                                            out, tp, P, C, nc, groups, st);
 }
 
 int ba_max_candidates() { return MAX_NC; }

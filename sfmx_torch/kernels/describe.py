@@ -2,9 +2,11 @@
 
 ``describe_upright`` samples a 24x24 patch spanning 20 sigma around each
 keypoint on its scale level and pools 87 cell features (2x2, 3x3, 4x4 grids
-x mean, dx, dy) into a 128-wide row — one CUDA block per keypoint
-(``sfmx_torch/csrc/describe.cu``).  ``describe_upright_reference`` is its
-plain PyTorch version; the wrapper runs it for CPU tensors only.
+x mean, dx, dy) into a 128-wide row — one CUDA warp per keypoint, a lane per
+patch column (``sfmx_torch/csrc/describe.cu``).  ``describe_upright_reference``
+is its plain PyTorch version; the wrapper runs it for CPU tensors only.
+``describe_upright_columns`` repeats the kernel's order of the pooling sums
+on the CPU, for tests.
 ``finalize_float``/``finalize_bits`` turn raw cells into the float and the
 packed binary descriptors.
 """
@@ -22,6 +24,7 @@ from .features import _GRIDS, _PATCH, N_WORDS
 WIN = 256           # reference window side: fixes the padding and origins
 N_CELLS_RAW = sum(g * g for g in _GRIDS) * 3   # 87
 OUT_DIM = 128
+KP_PER_BLOCK = 2    # keypoints (warps) per block of the kernel (chip_smoke.py --tune)
 
 LIB = "describe"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -30,8 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load(LIB)
     if not getattr(lib, "_sfmx_typed", False):
-        lib.dsc_describe_upright.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                             _I, _I, _I, _F, _F, _P]
+        lib.dsc_describe_upright.argtypes = [_P, _P, _P, ctypes.c_bool, _P, _P, _P, _I, _I,
+                                             _I, _I, _I, _I, _I, _F, _F, _I, _P]
         lib.dsc_describe_upright.restype = _I
         lib.dsc_error_string.argtypes = [_I]
         lib.dsc_error_string.restype = ctypes.c_char_p
@@ -56,14 +59,20 @@ def _window_params(uv: torch.Tensor, sigma: torch.Tensor, H: int, W: int):
     return y0, x0, fy, fx, spacing
 
 
-def _cells_from_patch(patch: torch.Tensor) -> torch.Tensor:
-    """(...,PATCH,PATCH) -> (...,87) cell features [mean,dx,dy per grid]."""
+def _gradients(patch: torch.Tensor):
+    """In-patch gradients: one-sided at the edges, central inside."""
     dx = torch.cat([patch[..., :, 1:2] - patch[..., :, 0:1],
                     0.5 * (patch[..., :, 2:] - patch[..., :, :-2]),
                     patch[..., :, -1:] - patch[..., :, -2:-1]], dim=-1)
     dy = torch.cat([patch[..., 1:2, :] - patch[..., 0:1, :],
                     0.5 * (patch[..., 2:, :] - patch[..., :-2, :]),
                     patch[..., -1:, :] - patch[..., -2:-1, :]], dim=-2)
+    return dx, dy
+
+
+def _cells_from_patch(patch: torch.Tensor) -> torch.Tensor:
+    """(...,PATCH,PATCH) -> (...,87) cell features [mean,dx,dy per grid]."""
+    dx, dy = _gradients(patch)
     lead = patch.shape[:-2]
     outs = []
     for g in _GRIDS:
@@ -74,8 +83,8 @@ def _cells_from_patch(patch: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=-1)
 
 
-def describe_upright_reference(levels, uv, level, sigma, mask) -> torch.Tensor:
-    """Plain version of K3: raw cell features (B,K,128) by gathers."""
+def _sample_patches(levels, uv, level, sigma) -> torch.Tensor:
+    """The (B,K,PATCH,PATCH) bilinear patches, rows y and columns x."""
     B, L, H, W = levels.shape
     K = uv.shape[1]
     Hp, Wp = padded_size(H, W)
@@ -99,42 +108,78 @@ def describe_upright_reference(levels, uv, level, sigma, mask) -> torch.Tensor:
         idx = ((base + yy) * Wp + xx).reshape(B, -1)
         return torch.gather(flat, 1, idx).reshape(B, K, _PATCH, _PATCH)
 
-    patch = (at(yi, xi) * (1 - ax) * (1 - ay) + at(yi, xi + 1) * ax * (1 - ay)
-             + at(yi + 1, xi) * (1 - ax) * ay + at(yi + 1, xi + 1) * ax * ay)
-    feats = F.pad(_cells_from_patch(patch), (0, OUT_DIM - N_CELLS_RAW))
+    return (at(yi, xi) * (1 - ax) * (1 - ay) + at(yi, xi + 1) * ax * (1 - ay)
+            + at(yi + 1, xi) * (1 - ax) * ay + at(yi + 1, xi + 1) * ax * ay)
+
+
+def _masked_row(cells: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    feats = F.pad(cells, (0, OUT_DIM - N_CELLS_RAW))
     return torch.where(mask[..., None], feats, torch.zeros_like(feats))
 
 
-def describe_upright(levels, uv, level, sigma, mask) -> torch.Tensor:
+def describe_upright_reference(levels, uv, level, sigma, mask) -> torch.Tensor:
+    """Plain version of K3: raw cell features (B,K,128) by gathers."""
+    return _masked_row(_cells_from_patch(_sample_patches(levels, uv, level, sigma)), mask)
+
+
+def describe_upright_columns(levels, uv, level, sigma, mask) -> torch.Tensor:
+    """K3 with the kernel's order of the pooling sums, for tests: each patch
+    column is summed over the row bands of the three grids (rows in order),
+    then a cell adds its columns' band sums in order and divides by its
+    area.  Sampling and gradients are the plain version's."""
+    patch = _sample_patches(levels, uv, level, sigma)
+    dx, dy = _gradients(patch)
+    outs = []
+    for g in _GRIDS:
+        cs = _PATCH // g
+        for ch in (patch, dx, dy):
+            cells = []
+            for by in range(g):
+                band = ch[..., by * cs, :]
+                for i in range(by * cs + 1, (by + 1) * cs):
+                    band = band + ch[..., i, :]                   # (B,K,PATCH) column sums
+                for bx in range(g):
+                    t = band[..., bx * cs]
+                    for x in range(bx * cs + 1, (bx + 1) * cs):
+                        t = t + band[..., x]
+                    cells.append(t / float(cs * cs))
+            outs.append(torch.stack(cells, dim=-1))
+    return _masked_row(torch.cat(outs, dim=-1), mask)
+
+
+def describe_upright(levels, uv, level, sigma, mask,
+                     keypoints_per_block: int = KP_PER_BLOCK) -> torch.Tensor:
     """K3: raw upright cell features (B,K,128) for all keypoints of a batch.
 
     levels (B,L,H,W) f32; uv (B,K,2) f32; level (B,K) int; sigma (B,K) f32;
     mask (B,K) bool.  Normalize with ``finalize_float``/``finalize_bits``.
+    ``keypoints_per_block`` (1..16) is the kernel's block shape: a sweep
+    parameter, it does not change the result.
     """
-    if levels.device.type == "cpu":
+    dev = levels.device
+    if dev.type == "cpu":
         return describe_upright_reference(levels, uv, level, sigma, mask)
-    if levels.device.type != "cuda":
-        raise ValueError(f"levels must be a CUDA or CPU tensor, got {levels.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"levels must be a CUDA or CPU tensor, got {dev}")
     B, L, H, W = levels.shape
     K = uv.shape[1]
-    for name, x, dt, shape in (("levels", levels, torch.float32, (B, L, H, W)),
-                               ("uv", uv, torch.float32, (B, K, 2)),
-                               ("sigma", sigma, torch.float32, (B, K)),
-                               ("mask", mask, torch.bool, (B, K))):
-        if x.device != levels.device or x.dtype != dt or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {dt} {shape} on {levels.device}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if tuple(level.shape) != (B, K) or level.device != levels.device:
-        raise ValueError(f"level must be ({B},{K}) on {levels.device}")
-    levels, uv, sigma, mask = (t.contiguous() for t in (levels, uv, sigma, mask))
-    level = level.to(torch.int32).contiguous()
+    # checked, not converted: a cast or a copy would be a launch of its own
+    for name, x, dts, shape in (("levels", levels, (torch.float32,), (B, L, H, W)),
+                                ("uv", uv, (torch.float32,), (B, K, 2)),
+                                ("level", level, (torch.int32, torch.int64), (B, K)),
+                                ("sigma", sigma, (torch.float32,), (B, K)),
+                                ("mask", mask, (torch.bool,), (B, K))):
+        if x.device != dev or x.dtype not in dts or x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {' or '.join(map(str, dts))} {shape} "
+                             f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
     Hp, Wp = padded_size(H, W)
     lib = _lib()
-    out = torch.empty((B, K, OUT_DIM), dtype=torch.float32, device=levels.device)
+    out = torch.empty((B, K, OUT_DIM), dtype=torch.float32, device=dev)
     err = lib.dsc_describe_upright(levels.data_ptr(), uv.data_ptr(), level.data_ptr(),
+                                   level.dtype == torch.int64,
                                    sigma.data_ptr(), mask.data_ptr(), out.data_ptr(),
                                    B, L, H, W, Hp, Wp, K, Wp - 1.001, Hp - 1.001,
-                                   _build.stream_ptr(levels.device))
+                                   keypoints_per_block, _build.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"describe_upright: {lib.dsc_error_string(err).decode()} ({err})")
     _build.LAUNCHES.add("describe_upright", int(B * K > 0))

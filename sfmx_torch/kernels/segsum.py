@@ -235,6 +235,69 @@ def ba_cost_fused_plain(cam19s, camp, uvw, x3s, delta, nc: int):
     return torch.stack(out)
 
 
+COST_LANES = 32              # points per block of K8's point pass
+COST_MAX_GROUPS = 16         # threads that may share a point's slots in K8's point pass
+COST_FILL_THREADS = 65536    # K8 doubles its slot groups until its grid holds this many threads
+COST_CAM_SMEM_BYTES = 48 * 1024   # K8 stages the camera tables up to this size
+
+
+def cost_slot_groups(tp: int, P: int) -> int:
+    """K8's slot groups for a (tp, P) layout: doubled from 1 while the grid
+    holds fewer than COST_FILL_THREADS threads and tp slots need more
+    groups, up to COST_MAX_GROUPS (``chip_smoke.py --tune``: 16 on the
+    build's 2,290 points, 4 on 20,000).  A function of the layout alone,
+    so every launch on one layout, whatever its nc, sums in one order."""
+    n_blocks = (P + COST_LANES - 1) // COST_LANES
+    groups = 1
+    while (groups < COST_MAX_GROUPS and groups < tp
+           and COST_LANES * groups * n_blocks < COST_FILL_THREADS):
+        groups *= 2
+    return groups
+
+
+def _tree32(s: torch.Tensor) -> torch.Tensor:
+    """(..., 32) -> (...): the kernels' shuffle tree (lane l adds lane l+off
+    for off = 16, 8, 4, 2, 1)."""
+    for off in (16, 8, 4, 2, 1):
+        s = s[..., :off] + s[..., off:2 * off]
+    return s[..., 0]
+
+
+def ba_cost_fused_grouped(cam19s, dense: DenseObs, uvw, x3s, delta: float, nc: int,
+                          groups: int | None = None) -> torch.Tensor:
+    """Plain-PyTorch mirror of the K8 kernel's order of sums, for tests.
+    Per candidate: group g of ``groups`` (by default the kernel's
+    ``cost_slot_groups``) adds slots g, g+groups, ... of a point in order; a
+    point's group partials meet in group order; each block of 32 points is
+    summed by the shuffle tree; in the last block, lane l adds blocks l,
+    l+32, ... in order, and the tree sums the lanes."""
+    tp, P = dense.camp.shape
+    groups = cost_slot_groups(tp, P) if groups is None else groups
+    uvw = uvw.reshape(tp, 3, P)
+    real = torch.arange(tp, device=uvw.device)[:, None] < dense.cnt[None, :]
+    nb = (P + COST_LANES - 1) // COST_LANES
+    out = []
+    for c in range(nc):
+        g = list(cam19s[19 * c:19 * c + 19][:, dense.camp.long()])
+        ru, rv, _ = _proj_math(g, x3s[3 * c], x3s[3 * c + 1], x3s[3 * c + 2], uvw[:, 0], uvw[:, 1])
+        rho, _ = _huber_rows(ru, rv, delta)
+        term = torch.where(real, 0.5 * rho * uvw[:, 2], torch.zeros_like(rho))
+        point = None
+        for grp in range(groups):
+            acc = torch.zeros_like(term[0])
+            for j in range(grp, tp, groups):
+                acc = acc + term[j]
+            point = acc if point is None else point + acc
+        point = torch.nn.functional.pad(point, (0, nb * COST_LANES - P))
+        blocks = _tree32(point.reshape(nb, COST_LANES))
+        blocks = torch.nn.functional.pad(blocks, (0, -nb % 32)).reshape(-1, 32)
+        lanes = torch.zeros_like(blocks[0])
+        for r in range(blocks.shape[0]):
+            lanes = lanes + blocks[r]
+        out.append(_tree32(lanes))
+    return torch.stack(out)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -245,11 +308,12 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_sfmx_typed", False):
         lib.ba_schur_matvec.argtypes = [_P] * 11 + [_I] * 5 + [_P]
         lib.ba_assemble.argtypes = [_P] * 5 + [_F] + [_P] * 6 + [_I, _I, _I, _P]
-        lib.ba_cost.argtypes = [_P] * 5 + [_F, _P, _I, _I, _I, _I, _P]
+        lib.ba_cost.argtypes = [_P] * 5 + [_F] + [_P] * 3 + [_I] * 5 + [ctypes.c_bool, _P]
         for fn in (lib.ba_schur_matvec, lib.ba_assemble, lib.ba_cost, lib.ba_max_candidates):
             fn.restype = _I
         lib.ba_error_string.argtypes = [_I]
         lib.ba_error_string.restype = ctypes.c_char_p
+        lib.max_nc = lib.ba_max_candidates()
         lib._sfmx_typed = True
     return lib
 
@@ -379,26 +443,72 @@ def ba_assemble_fused(cam19, dense: DenseObs, uvw, x3, delta: float):
     return U, bc, v13, Wp
 
 
-def ba_cost_fused(cam19s, dense: DenseObs, uvw, x3s, delta: float, nc: int):
+class CostFused:
+    """K8 bound to one layout and its packed observations: ``dense`` and
+    ``uvw`` are checked once here, and every call checks only its
+    candidates.  ``lm.ba_solve`` binds one per solve and calls it once per
+    LM iteration (and once for the first cost).
+
+    On CUDA tensors a call launches the kernel or raises; on CPU tensors it
+    runs the plain version.  A call returns a fresh (nc,) tensor of costs.
+    The kernel's block partials and its ticket (a counter the launch leaves
+    at zero) are this object's, so its calls run on one stream, in order.
+    """
+
+    def __init__(self, dense: DenseObs, uvw):
+        self.dense, self.uvw = dense, uvw
+        self.tp, self.P = tp, P = dense.camp.shape
+        self.cpu = _all_cpu(dense.camp, dense.cnt, uvw)
+        if self.cpu:
+            return
+        self.dev = dev = uvw.device
+        _check("ba_cost_fused", dev, camp=(dense.camp, torch.int32, (tp, P)),
+               cnt=(dense.cnt, torch.int32, (P,)), uvw=(uvw, torch.float32, (tp * 3, P)))
+        self.lib = _lib()
+        self.groups = cost_slot_groups(tp, P)
+        n_blocks = (P + COST_LANES - 1) // COST_LANES
+        self.part = torch.empty((self.lib.max_nc * n_blocks,), dtype=torch.float32, device=dev)
+        self.ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.static = (dense.camp.data_ptr(), dense.cnt.data_ptr(), uvw.data_ptr())
+
+    def __call__(self, cam19s, x3s, delta: float, nc: int, groups: int | None = None,
+                 stage: bool | None = None):
+        if self.cpu and _all_cpu(cam19s, x3s):
+            return ba_cost_fused_plain(cam19s, self.dense.camp, self.uvw, x3s, delta, nc)
+        if self.cpu:
+            raise ValueError("ba_cost_fused: the layout is on the CPU, the candidates are not")
+        P, dev = self.P, self.dev
+        C = cam19s.shape[1]
+        for key, x, shape in (("cam19s", cam19s, (19 * nc, C)), ("x3s", x3s, (3 * nc, P))):
+            if (x.device != dev or x.dtype != torch.float32 or x.shape != shape
+                    or not x.is_contiguous()):
+                raise ValueError(f"ba_cost_fused: {key} must be contiguous float32 {shape} on "
+                                 f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not 0 < nc <= self.lib.max_nc:
+            raise ValueError(f"ba_cost_fused: nc must be in 1..{self.lib.max_nc}, got {nc}")
+        if stage is None:
+            stage = 19 * nc * C * 4 <= COST_CAM_SMEM_BYTES
+        out = torch.empty((nc,), dtype=torch.float32, device=dev)
+        err = self.lib.ba_cost(cam19s.data_ptr(), *self.static, x3s.data_ptr(), float(delta),
+                               out.data_ptr(), self.part.data_ptr(), self.ticket.data_ptr(),
+                               self.tp, P, C, nc, self.groups if groups is None else groups,
+                               stage, _build.stream_ptr(dev))
+        _raise("ba_cost_fused", self.lib, err)
+        _build.LAUNCHES.add("ba_cost_fused", 1)
+        return out
+
+
+def ba_cost_fused(cam19s, dense: DenseObs, uvw, x3s, delta: float, nc: int,
+                  groups: int | None = None, stage: bool | None = None):
     """K8: the robust cost of nc parameter candidates in one pass over the
     packed observations.  cam19s (19*nc, C) stacked camera tables, x3s
-    (3*nc, P) stacked points.  Returns (nc,) costs."""
-    if _all_cpu(cam19s, dense.camp, uvw, x3s):
-        return ba_cost_fused_plain(cam19s, dense.camp, uvw, x3s, delta, nc)
-    tp, P = dense.camp.shape
-    C = cam19s.shape[1]
-    dev = cam19s.device
-    f32, i32 = torch.float32, torch.int32
-    _check("ba_cost_fused", dev, cam19s=(cam19s, f32, (19 * nc, C)),
-           camp=(dense.camp, i32, (tp, P)), cnt=(dense.cnt, i32, (P,)),
-           uvw=(uvw, f32, (tp * 3, P)), x3s=(x3s, f32, (3 * nc, P)))
-    lib = _lib()
-    if not 0 < nc <= lib.ba_max_candidates():
-        raise ValueError(f"ba_cost_fused: nc must be in 1..{lib.ba_max_candidates()}, got {nc}")
-    out = torch.empty((nc, P), dtype=f32, device=dev)
-    err = lib.ba_cost(cam19s.data_ptr(), dense.camp.data_ptr(), dense.cnt.data_ptr(),
-                      uvw.data_ptr(), x3s.data_ptr(), float(delta), out.data_ptr(),
-                      tp, P, C, nc, _build.stream_ptr(dev))
-    _raise("ba_cost_fused", lib, err)
-    _build.LAUNCHES.add("ba_cost_fused", 1)
-    return out.sum(dim=1)
+    (3*nc, P) stacked points.  Returns (nc,) costs.  A caller with many
+    candidate sets for one layout keeps the ``CostFused``.
+
+    ``groups`` (1..16 threads share a point's slots; by default
+    ``cost_slot_groups`` of the layout) and ``stage`` (camera tables in
+    shared memory; by default when they take at most COST_CAM_SMEM_BYTES)
+    are the kernel's shape: sweep parameters.  A candidate's cost depends on
+    ``groups`` but not on ``stage``, on nc or on its place among the
+    candidates."""
+    return CostFused(dense, uvw)(cam19s, x3s, delta, nc, groups, stage)

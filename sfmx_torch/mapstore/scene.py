@@ -58,8 +58,8 @@ class Scene:
         return {k: getattr(self, k).detach().cpu().numpy() for k in SCENE_FIELDS}
 
 
-def new_scene(n_cams: int, n_points: int, n_obs: int, intr, cam_k=None,
-              device="cpu") -> Scene:
+def new_scene(n_cams: int, n_points: int, n_obs: int, intr, cam_k=None, *,
+              device) -> Scene:
     """An empty scene of the given capacities on ``device``."""
     intr = torch.as_tensor(intr, dtype=torch.float32, device=device).reshape(-1, 7)
     z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
@@ -148,6 +148,6 @@ def save_scene(path: str | Path, scene: Scene, extra: dict | None = None):
     save_columns(path, cols, manifest)
 
 
-def load_scene(path: str | Path, device="cpu") -> Scene:
+def load_scene(path: str | Path, device) -> Scene:
     cols = load_scene_np(path, mmap=False)
     return Scene(**{k: torch.as_tensor(np.asarray(cols[k]), device=device) for k in SCENE_FIELDS})

@@ -106,8 +106,9 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
         if not tp_cap:
             raise ValueError("dense_cg requires tp_cap (track-length bound)")
         dense = segsum.build_dense_obs(pt_id, cam_id, n_pts, n_cams, tp_cap)
-        # packed once per solve for K7 and K8
+        # packed once per solve for K7 and K8, and K8 bound to it
         uvw = segsum.pack_rows(dense, torch.cat([uv, w_valid[:, None]], dim=1))
+        cost_fused = segsum.CostFused(dense, uvw)
         if ov_cap:
             start = torch.searchsorted(pt_id, torch.arange(n_pts, device=dev, dtype=pt_id.dtype))
             slot = torch.arange(len(pt_id), device=dev) - start[pt_id.long()]
@@ -125,7 +126,7 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
         cam19s = torch.cat([segsum.build_cam_table(intr, k_idx, Rc, tc)
                             for Rc, tc in zip(Rs, ts)], dim=0)
         x3s = torch.cat([Xc.T for Xc in Xs], dim=0).contiguous()
-        costs = segsum.ba_cost_fused(cam19s, dense, uvw, x3s, huber_n, nc=len(Rs))
+        costs = cost_fused(cam19s, x3s, huber_n, nc=len(Rs))
         if ov is not None:
             costs = costs + torch.stack([_eval_cost(intr, k_idx, Rc, tc, Xc, *ov, huber_n)
                                          for Rc, tc, Xc in zip(Rs, ts, Xs)])

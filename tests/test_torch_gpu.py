@@ -145,6 +145,34 @@ def test_k3_describe_upright_matches_plain(cuda, edge):
     assert bool((out[~mask] == 0).all()) and bool((out[..., 87:] == 0).all())
 
 
+@pytest.mark.parametrize("K,kpb", [(61, 8), (37, 16), (5, 1), (29, 6)])
+def test_k3_ragged_blocks_and_wide_sigmas(cuda, K, kpb):
+    """K not a multiple of the keypoints a block takes, sigma from 1.6 to 24
+    (sample spacing 1.39 to 20.9 px, so below and above one pixel), edge
+    keypoints: atol 1e-5 against the plain version, one launch counted,
+    masked rows and columns 87..127 exactly zero; an all-masked batch gives
+    zeros."""
+    rng = np.random.default_rng(K)
+    B, L, H, W = 3, 5, 200, 300
+    levels = torch.as_tensor(rng.random((B, L, H, W)), dtype=torch.float32, device=cuda)
+    uv = torch.as_tensor(rng.uniform(-2.0, 310.0, (B, K, 2)), dtype=torch.float32, device=cuda)
+    lvl = torch.as_tensor(rng.integers(0, L, (B, K)), device=cuda)
+    sigma = torch.as_tensor(rng.uniform(1.6, 24.0, (B, K)), dtype=torch.float32, device=cuda)
+    mask = torch.as_tensor(rng.random((B, K)) > 0.3, device=cuda)
+    before = _build.LAUNCHES.get("describe_upright")
+    out = dsc.describe_upright(levels, uv, lvl, sigma, mask, keypoints_per_block=kpb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.get("describe_upright") == before + 1
+    ref = dsc.describe_upright_reference(levels, uv, lvl, sigma, mask)
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert bool((out[~mask] == 0).all()) and bool((out[..., 87:] == 0).all())
+    none = dsc.describe_upright(levels, uv, lvl, sigma, torch.zeros_like(mask),
+                                keypoints_per_block=kpb)
+    assert bool((none == 0).all())
+    with pytest.raises(RuntimeError):
+        dsc.describe_upright(levels, uv, lvl, sigma, mask, keypoints_per_block=17)
+
+
 def test_extraction_on_card_matches_plain_path(cuda):
     """detect_and_describe through the kernels vs the same on the CPU
     (plain versions): keypoints within 0.05 px for >= 98% of the valid set."""
@@ -519,6 +547,54 @@ def test_k8_ba_cost_matches_plain(cuda, shape, nc):
     assert abs(float(got[0]) - c7) <= 1e-6 * c7
 
 
+def _k8_candidates(p, nc):
+    cams = torch.cat([sg.build_cam_table(p["intr"], p["k_idx"], p["R"], p["t"] + 0.01 * c)
+                      for c in range(nc)], 0)
+    xs = torch.cat([(p["X"] + 0.005 * c).T for c in range(nc)], 0).contiguous()
+    return cams, xs
+
+
+@pytest.mark.parametrize("shape", BA_SHAPES)
+def test_k8_bit_reproducible_and_position_invariant(cuda, shape):
+    """Two calls give the same bits; a candidate's cost is bit-equal from an
+    nc = 1 launch and from every place among 4 (the LM loop compares the
+    two), with the camera tables staged in shared memory or not."""
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *shape)
+    cams, xs = _k8_candidates(p, 4)
+    got = sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=4)
+    assert torch.equal(got, sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=4))
+    assert torch.equal(got, sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=4, stage=False))
+    assert torch.equal(got, sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=4, stage=True))
+    for order in ([3, 2, 1, 0], [1, 3, 0, 2]):
+        ix = torch.tensor(order, device=cuda)
+        perm = sg.ba_cost_fused(cams.reshape(4, 19, -1)[ix].reshape(76, -1).contiguous(), d, uvw,
+                                xs.reshape(4, 3, -1)[ix].reshape(12, -1).contiguous(), delta, nc=4)
+        assert torch.equal(perm, got[ix])
+    for c in range(4):
+        for stage in (False, True):
+            one = sg.ba_cost_fused(cams[19 * c:19 * c + 19], d, uvw, xs[3 * c:3 * c + 3], delta,
+                                   nc=1, stage=stage)
+            assert torch.equal(one, got[c:c + 1])
+
+
+@pytest.mark.parametrize("shape", BA_SHAPES)
+def test_k8_other_slot_groups(cuda, shape):
+    """Slot-group counts the kernel takes (1..16 threads a point), the
+    camera tables staged or not, 4 and 16 candidates (the two compiled
+    widths): within rtol 1e-4 of the plain version; more groups than a block
+    holds raise."""
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *shape)
+    for nc, group_set in ((4, (1, 2, 3, 8, 16)), (16, (1, 5, 16))):
+        cams, xs = _k8_candidates(p, nc)
+        ref = sg.ba_cost_fused_plain(cams, d.camp, uvw, xs, delta, nc)
+        for groups in group_set:
+            for stage in (False, True):
+                got = sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=nc, groups=groups, stage=stage)
+                assert torch.allclose(got, ref, rtol=1e-4, atol=0.0), (nc, groups, stage)
+    with pytest.raises(RuntimeError):
+        sg.ba_cost_fused(cams, d, uvw, xs, delta, nc=16, groups=32)
+
+
 def test_ba_wrappers_reject_bad_inputs(cuda):
     p, d, uvw, cam19, x3, delta = _ba_case(cuda, *BA_SHAPES[0])
     with pytest.raises(ValueError):
@@ -543,7 +619,7 @@ def test_ba_solve_on_card_matches_cpu(cuda, path):
     planes path, all PyTorch, moves by 1.5e-3 between the card and the CPU);
     the dense solve
     launches K7 once, K6 cg_iters+2 times and K8 once per LM iteration, plus
-    K8 once for the first cost."""
+    K8 once for the first cost (two CUDA kernels each for K6 and K7)."""
     C, P, O, tp, longs = BA_SHAPES[1]
     prob = ba_problem(C, P, O, seed=3, long_tracks=longs, perturb=0.03)
     lens = np.bincount(prob["pt_id"], minlength=P)

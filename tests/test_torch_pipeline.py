@@ -92,7 +92,7 @@ def test_stage_cache_tuples_and_named_tuples(tmp_path):
     rng = np.random.default_rng(1)
     res = _match_result(rng)
     cnt = torch.arange(7, dtype=torch.int32)
-    cache = tp.StageCache(tmp_path)
+    cache = tp.StageCache(tmp_path, "cpu")
     cache.get_or_run("verify", "k", lambda: (res, cnt))
     r2, c2 = cache.get_or_run("verify", "k", lambda: None)
     assert isinstance(r2, tm.MatchResult) and torch.equal(c2, cnt)
@@ -114,8 +114,8 @@ def test_stage_cache_reads_the_reference_artifact(tmp_path):
     jres = JMatchResult(jnp.asarray(res.idx.numpy().astype(np.int32)),
                         jnp.asarray(res.valid.numpy()), jnp.asarray(res.score.numpy()))
     jp.StageCache(tmp_path / "a").get_or_run("match", "k", lambda: jres)
-    got = tp.StageCache(tmp_path / "a").get_or_run("match", "k", lambda: None)
-    tp.StageCache(tmp_path / "b").get_or_run("match", "k", lambda: res)
+    got = tp.StageCache(tmp_path / "a", "cpu").get_or_run("match", "k", lambda: None)
+    tp.StageCache(tmp_path / "b", "cpu").get_or_run("match", "k", lambda: res)
     back = jp.StageCache(tmp_path / "b").get_or_run("match", "k", lambda: None)
     v = res.valid.numpy()
     for x in (got, back):
@@ -383,6 +383,22 @@ def test_build_map_matches_reference(built_map):
     assert abs(jstats["final_med_px"] - stats["final_med_px"]) < 0.1
 
 
+def test_helpers_take_no_default_device(tmp_path):
+    """``StageCache``, ``new_scene`` and ``load_scene`` name no device of
+    their own: a caller who leaves it out gets a TypeError, not the CPU."""
+    from sfmx_torch.mapstore import scene as tscene_mod
+
+    with pytest.raises(TypeError):
+        tp.StageCache(tmp_path)
+    with pytest.raises(TypeError):
+        tscene_mod.new_scene(2, 3, 4, np.ones(7, np.float32))
+    tscene_mod.save_scene(tmp_path / "map",
+                          tscene_mod.new_scene(2, 3, 4, np.ones(7, np.float32), device="cpu"))
+    with pytest.raises(TypeError):
+        tscene_mod.load_scene(tmp_path / "map")
+    assert tscene_mod.load_scene(tmp_path / "map", "cpu").capacities == (2, 3, 4)
+
+
 def test_scene_store_round_trips_with_reference(built_map, tmp_path):
     from sfmx.mapstore import scene as jscene_mod
     from sfmx_torch.mapstore import scene as tscene_mod
@@ -399,14 +415,14 @@ def test_scene_store_round_trips_with_reference(built_map, tmp_path):
         [f.name for f in dataclasses.fields(jscene_mod.Scene)] == list(tscene_mod.SCENE_FIELDS)
     # and the reverse: a store sfmx wrote
     jscene_mod.save_scene(tmp_path / "ref_map", js, extra={"note": "ref"})
-    back = tscene_mod.load_scene(tmp_path / "ref_map")
+    back = tscene_mod.load_scene(tmp_path / "ref_map", "cpu")
     for f in dataclasses.fields(tscene_mod.Scene):
         assert torch.equal(getattr(back, f.name), getattr(scene, f.name)), f.name
     cols = tscene_mod.load_scene_np(tmp_path / "port_map")
     np.testing.assert_array_equal(cols["cam_R"], scene.cam_R.numpy())
     # saving over an existing store works, and an empty scene has the reference's shapes
     tscene_mod.save_scene(tmp_path / "port_map", back)
-    new = tscene_mod.new_scene(4, 10, 20, np.asarray(js.intr))
+    new = tscene_mod.new_scene(4, 10, 20, np.asarray(js.intr), device="cpu")
     jnew = jscene_mod.new_scene(4, 10, 20, js.intr)
     for f in dataclasses.fields(tscene_mod.Scene):
         np.testing.assert_array_equal(getattr(new, f.name).numpy(), np.asarray(getattr(jnew, f.name)))
