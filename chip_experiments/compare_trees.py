@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time K4 match_top2, K2 response_levels, K3 describe_upright and K8
-ba_cost_fused of two source trees on one CUDA card, in turns inside one run,
-so that the two can be compared (the wall and the clocks differ between
-runs, and between cards).
+"""Time K4 match_top2, K2 response_levels, K3 describe_upright, K8
+ba_cost_fused, K5 match_pairs_fused, K9 match_pairs_tiled, K10
+match_pairs_top2 and K7 ba_assemble_fused of two source trees on one CUDA
+card, in turns inside one run, so that the two can be compared (the wall and
+the clocks differ between runs, and between cards).
 
-    python3 chip_experiments/compare_trees.py PARENT_ROOT [CHANGE_ROOT] [--kernels K3,K8]
+    python3 chip_experiments/compare_trees.py PARENT_ROOT [CHANGE_ROOT] [--kernels K5,K7]
 
 Each root is a directory that holds a ``sfmx_torch`` package (for the parent,
 e.g. ``git archive <commit> sfmx_torch | tar -x -C <dir>``); CHANGE_ROOT
@@ -28,7 +29,21 @@ the call ``ba_solve`` makes in its tree (a ``CostFused`` bound to the layout
 where the tree has one).  K3 and K8 also by CUDA events around 20 calls
 back to back (``b2b_ms``) and around the replay of a CUDA graph of 20 calls
 (``graph_ms``, per call: their device time without the host's path and
-without the profiler).  ``--kernels`` picks a subset (default all four).
+without the profiler).
+
+K5, K9 and K10 on random unit descriptors (D = 128, K = 1024) with random
+masks (~90 % valid): K5 over the 4,560 exhaustive pairs of 96 images, K9
+over a band list of 2,245 pairs of 256 images (every pair up to 8 apart and
+233 random pairs further apart, as the band build's retrieval list), K10 raw
+on the first 512 exhaustive pairs (masked rows zeroed).  K7 on the two K8
+problems, through the call ``ba_solve`` makes in its tree (an
+``AssembleFused`` bound to the layout where the tree has one).  For these
+``launch_ms`` is the mean traced launch of each of the tree's own kernels
+(CUDA kernels of ``sfmx_torch/csrc`` and the memsets they issue) summed over
+them, with how many launches the trace kept (``traced``): a trace of a short
+kernel called back to back drops launches.  A call that cannot be captured
+into a CUDA graph (the matchers copy their pair lists from the host) is not
+captured: its ``graph_ms`` is null.  ``--kernels`` picks a subset (default K4,K2,K3,K8).
 """
 from __future__ import annotations
 
@@ -121,6 +136,46 @@ def device_ms(fn, reps: int = 10) -> float:
         if us > 0:
             return us / 1e3 / reps
     raise RuntimeError("the profiler recorded no device time")
+
+
+def own_kernel(name: str) -> bool:
+    """A kernel of the tree's own ``sfmx_torch/csrc`` (its anonymous
+    namespace), or a memset that one of them issues."""
+    return "anonymous namespace" in name or "Memset" in name
+
+
+def timings(fn, reps: int = 9, graph: bool = True) -> dict:
+    """One call by an event pair, 20 back to back, a graph of 20 (where the
+    call can be captured), the mean traced launch (summed over the tree's
+    kernels) and all device time."""
+    from chip_smoke import launch_device_ms
+
+    per: dict = {}
+    total, _note = launch_device_ms(fn, 20, own_kernel, per)
+    return {"one_call_ms": cuda_ms(fn, reps=reps), "b2b_ms": b2b_ms(fn),
+            "graph_ms": graph_ms(fn) if graph else None, "launch_ms": total, "kernels": per,
+            "device_ms": device_ms(fn, reps=10)}
+
+
+def pair_inputs(dev, g):
+    """Random unit descriptors and ~90 % masks for 256 images of K = 1024,
+    the exhaustive pairs of the first 96, the band list over all 256 and the
+    raw list (the first 512 exhaustive pairs)."""
+    import numpy as np
+    import torch
+
+    C, K = 256, 1024
+    x = torch.randn((C, K, 128), generator=g)
+    d = (x / torch.linalg.vector_norm(x, dim=2, keepdim=True)).to(dev)
+    m = (torch.rand((C, K), generator=g) < 0.9).to(dev)
+    exh = np.array([(a, b) for a in range(96) for b in range(a + 1, 96)], np.int32)
+    band = {(a, b) for a in range(C) for b in range(a + 1, min(a + 9, C))}
+    rng = np.random.default_rng(0)
+    while len(band) < 2245:
+        a, b = sorted(rng.choice(C, 2, replace=False).tolist())
+        if b - a > 8:
+            band.add((a, b))
+    return d, m, exh, np.array(sorted(band), np.int32)
 
 
 def measure(root: str, tag: str, kernels: set[str], served: Path) -> None:
@@ -232,6 +287,44 @@ def measure(root: str, tag: str, kernels: set[str], served: Path) -> None:
                 out[f"K8 {name} nc={nc}"] = {"wrapper_ms": cuda_ms(k8, reps=21), "b2b_ms": b2b_ms(k8),
                                              "device_ms": device_ms(k8, reps=20),
                                              "graph_ms": graph_ms(k8)}
+    if kernels & {"K5", "K9", "K10"}:
+        from sfmx_torch.kernels import pairs as mp
+        from sfmx_torch.kernels import tiles as mtl
+
+        d, m, exh, band = pair_inputs(dev, g)
+        if "K5" in kernels:
+            out["K5 exhaustive 4560 pairs K=1024"] = timings(
+                lambda: mp.match_pairs_fused(d[:96], m[:96], exh, ratio=0.85), reps=5, graph=False)
+        if "K9" in kernels:
+            out[f"K9 band {len(band)} pairs K=1024"] = timings(
+                lambda: mtl.match_pairs_float_tiled(d, m, band, ratio=0.85), reps=5, graph=False)
+        if "K10" in kernels:
+            dz = torch.where(m[:96, :, None], d[:96], 0.0)
+            out["K10 raw 512 pairs K=1024"] = timings(lambda: mp.match_pairs_top2(dz, exh[:512]), graph=False)
+        del d, m
+    if "K7" in kernels:
+        from tests.smoke_scenes import ba_problem
+
+        for name, (C, P, O, tp, window, longs) in {
+                "build-sized": (96, 2267, 36000, 64, 24, 100),
+                "ba-512": (512, 20000, 200000, 32, 16, 0)}.items():
+            prob = {k: torch.as_tensor(v, device=dev) for k, v in
+                    ba_problem(C, P, O, seed=0, window=window, perturb=0.03,
+                               long_tracks=longs).items()}
+            dense = sg.build_dense_obs(prob["pt_id"], prob["cam_id"], P, C, tp)
+            uvw = sg.pack_rows(dense, torch.cat([prob["uv"], prob["w_valid"][:, None]], 1))
+            cam19 = sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"], prob["t"])
+            x3 = prob["X"].T.contiguous()
+            if hasattr(sg, "AssembleFused"):   # the call ba_solve makes: bound once per solve
+                asm = sg.AssembleFused(dense, uvw)
+
+                def k7():
+                    asm(cam19, x3, 0.008)
+            else:
+                def k7():
+                    sg.ba_assemble_fused(cam19, dense, uvw, x3, 0.008)
+
+            out[f"K7 {name} O={int(dense.cnt.sum())}"] = timings(k7, reps=21)
     print(json.dumps(out), flush=True)
 
 

@@ -5,8 +5,9 @@ front-end and reconstruction paths once on one CUDA card.
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (``python3 chip_smoke.py --tune`` runs instead the sweeps behind K1's tile
 and fused-step constants, K2's tile, K3's keypoints per block, K4's landmark
-tile, ring depth and splits, K6's slot groups and K8's slot groups and
-camera-table staging, and prints no result lines.)
+tile, ring depth and splits, K5's pairs per block and ring depth, K6's slot
+groups, K7's slot groups, and K8's slot groups and camera-table staging,
+and prints no result lines.)
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
@@ -81,8 +82,9 @@ Phases (each asserts; any failure exits non-zero):
  14. pair kernels — K5 and K9 against the plain matcher on the card at the
                   4,560 exhaustive pairs and at the band list (score within
                   1e-5, valid and accepted idx equal outside near-ties), K9
-                  equal to K5 in every field; K10 (K5's raw mode) on 512
-                  pairs as its own path, against its plain version; times
+                  equal to K5 in every field; K10 (K5's raw mode, one
+                  launch) on 512 pairs as its own path, against its plain
+                  version; times
  15. front crosscheck — 16 adjacent pairs: the card's match and verify
                   stages against the plain CPU path with the same Gumbel
                   noise (valid equal outside near-ties; per pair, inlier
@@ -93,7 +95,7 @@ Phases (each asserts; any failure exits non-zero):
                   implies, of the serving run (K1-K4 all > 0), and of each
                   front-end build (K1-K3 per extraction call, K1 one per
                   chunk of fused FED steps, K2 one; K5 and K9 two per
-                  wrapper call)
+                  wrapper call, K10 one)
  17. BA kernels — a random bundle-adjustment problem of 512 cameras, 20,000
                   points and 200,000 observations (tp = 32 slots per point,
                   30 CG steps): K7, K6 and K8 against their plain versions
@@ -623,18 +625,28 @@ def device_ms_per_run(fn, reps: int, counts: dict | None = None):
     return sum(by_name.values()), by_name, table
 
 
-def launch_device_ms(fn, reps: int) -> tuple[float, str]:
-    """Device time per call of a wrapper that launches each of its kernels
-    once a call: the mean traced duration of each kernel, summed over its
-    kernels (a trace that lost launches still times those it holds), and a
-    note of each kernel's mean and how many of its reps launches the trace
-    holds."""
+def launch_device_ms(fn, reps: int, keep=None, per: dict | None = None) -> tuple[float, str]:
+    """Device time per call of a wrapper: the mean traced duration of each of
+    its kernels (those whose name ``keep`` accepts; all by default) times its
+    launches a call, summed over its kernels (a trace that lost launches still
+    times those it holds; the launches a call are the traced count over reps,
+    at least 1, right where the trace kept them all), and a note of each
+    kernel's mean and how many of its launches the trace holds.  ``per``,
+    where given, receives per kernel its mean ms, traced count and launches a
+    call."""
     counts: dict[str, int] = {}
     _ms, by_name, _table = device_ms_per_run(fn, reps, counts)
-    means = {k: t * reps / counts[k] for k, t in by_name.items()}
-    note = ", ".join(f"{t:.4f} {k.replace('(anonymous namespace)::', '').split('(')[0]} "
-                     f"({counts[k]} of {reps} traced)" for k, t in means.items())
-    return sum(means.values()), note
+    means = {k.replace("(anonymous namespace)::", "").split("(")[0]:
+             {"ms": t * reps / counts[k], "traced": counts[k],
+              "per_call": max(1, round(counts[k] / reps))}
+             for k, t in by_name.items() if keep is None or keep(k)}
+    if not means:
+        raise RuntimeError("the profiler recorded none of the wrapper's kernels")
+    if per is not None:
+        per.update(means)
+    note = ", ".join(f"{m['ms']:.4f} {k} ({m['traced']} of {reps * m['per_call']} traced)"
+                     for k, m in means.items())
+    return sum(m["ms"] * m["per_call"] for m in means.values()), note
 
 
 def phase_profile(stages: dict, wall: float, smi: str, tag: str, n_frames: int,
@@ -1221,11 +1233,15 @@ def phase_pair_kernels(feats, pairs, band_feats, band_pairs, ratio: float, smi: 
 
 
 def kernel_ms(fn, reps: int = 5) -> float:
-    """Device time per call of match_pairs.cu's two kernels (the pair
-    kernel and its finish) under torch.profiler, without the wrapper's host
-    work and its small device ops."""
+    """Device time per call of match_pairs.cu's kernels (the pair kernel,
+    which runs the listed and the swapped pairs, and in match mode its
+    finish) under torch.profiler, without the wrapper's host work and its
+    small device ops.  Fails if the trace holds none of them (a renamed
+    kernel would read 0 ms)."""
     _, by_name, _ = device_ms_per_run(fn, reps)
-    return sum(t for k, t in by_name.items() if "pairs_kernel" in k or "finish_kernel" in k)
+    ours = {k: t for k, t in by_name.items() if "pairs_kernel" in k or "finish_kernel" in k}
+    assert ours, f"no match_pairs.cu kernel in the trace: {sorted(by_name)}"
+    return sum(ours.values())
 
 
 def phase_k10(feats, pairs, dev, smi: str) -> dict:
@@ -1247,7 +1263,7 @@ def phase_k10(feats, pairs, dev, smi: str) -> dict:
     _build.LAUNCHES.reset()
     s1, i1, s2, j1 = match_pairs_top2(d, p)
     torch.cuda.synchronize()
-    check_launches("K10 path", dict(_build.LAUNCHES.counts), {"match_pairs_top2": 2})
+    check_launches("K10 path", dict(_build.LAUNCHES.counts), {"match_pairs_top2": 1})
     launches = _build.LAUNCHES.get("match_pairs_top2")
     r1, ri, r2, rj = match_pairs_top2_plain(d, p)
     pt = torch.as_tensor(p, device=dev).long()
@@ -1428,7 +1444,8 @@ def phase_front_end(dev, smi: str, profile: bool):
     binr, bin_launches, _ = run_front_end("binary", None, bin_cfg, dev, feats=exh[0])
     truth_gates("binary", poses[:N_BUILD], binr, mc.gv_min_inliers)
 
-    # K5 and K9 launch twice per wrapper call (the pair kernel, then finish)
+    # K5 and K9 launch twice per wrapper call (the pair kernel with the
+    # swapped list in it, then finish)
     ext = extraction_launches()
     check_launches("exhaustive build", exh_launches, {**ext, "match_pairs_fused": 2})
     check_launches("band build", band_launches,
@@ -1478,8 +1495,9 @@ def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str,
     n_dense = int(dense.cnt.sum())
     out = {}
 
-    # K7
-    U, bc, v13, Wp = sg.ba_assemble_fused(cam19, dense, uvw, x3, delta)
+    # K7, bound to the layout once, as ba_solve binds it
+    asm = sg.AssembleFused(dense, uvw)
+    U, bc, v13, Wp = asm(cam19, x3, delta)
     rU, rbc, rv13, rWp = sg.ba_assemble_fused_plain(cam19, dense.camp, uvw, x3, delta)
     torch.cuda.synchronize()
     e7 = {"U": rel_err(U, rU), "V9": rel_err(v13[:9], rv13[:9]), "Wp": rel_err(Wp, rWp),
@@ -1488,17 +1506,31 @@ def ba_kernel_checks(tag: str, prob: dict, tp: int, delta: float, smi: str,
     abs7 = max(float((U - rU).abs().max()), float((Wp - rWp).abs().max()),
                float((v13 - rv13).abs().max()), float((bc - rbc).abs().max()))
     tol7 = KERNELS["ba_assemble_fused"][2]
-    ms7 = cuda_ms(lambda: sg.ba_assemble_fused(cam19, dense, uvw, x3, delta))
+    ms7 = cuda_ms(lambda: asm(cam19, x3, delta), reps=21, warm=3)
+    # the one-shot wrapper (binds on every call): how K7 was timed before it
+    # was bound once per solve
+    once7 = cuda_ms(lambda: sg.ba_assemble_fused(cam19, dense, uvw, x3, delta), reps=21, warm=3)
+    b2b7 = cuda_ms_per_call(lambda: asm(cam19, x3, delta))
+    # the mean traced launch of each of its two kernels: an event pair around
+    # so short a call times the wrapper's host path
+    dev7, note7 = launch_device_ms(lambda: asm(cam19, x3, delta), 20)
     p7 = cuda_ms(lambda: sg.ba_assemble_fused_plain(cam19, dense.camp, uvw, x3, delta), reps=3, warm=1)
-    log(f"[BA kernels] {tag}: K7 ba_assemble_fused C={C} P={P} O={n_dense} tp={tp}: relative errors "
+    same7 = all(torch.equal(a, b) for a, b in zip((U, bc, v13, Wp), asm(cam19, x3, delta)))
+    log(f"[BA kernels] {tag}: K7 ba_assemble_fused C={C} P={P} O={n_dense} tp={tp} "
+        f"({sg.assemble_slot_groups(tp, P)} slot groups): relative errors "
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in e7.items()})} (tol {tol7:.0e} for U, V9, "
         f"Wp, cost; 1e-3 for the near-cancelling b_c, b_p); max abs {abs7:.3e}; kernel "
-        f"{ms7:.3f} ms, plain {p7:.3f} ms on {smi}")
+        f"{ms7:.4f} ms by CUDA events around one call bound to the layout ({once7:.4f} through "
+        f"the one-shot wrapper), {b2b7:.4f} ms per call "
+        f"over 20 back to back, device {dev7:.4f} ms per call by torch.profiler ({note7}); plain "
+        f"{p7:.3f} ms; two calls bit-equal {same7}; on {smi}")
     assert max(e7["U"], e7["V9"], e7["Wp"], e7["cost"]) <= tol7 and max(e7["b_c"], e7["b_p"]) <= 1e-3
+    assert same7, "K7: two calls gave different bits"
     # necessary work: uvw, camp, X and the camera table read, W, the point
     # rows and the camera blocks written; ~350 FLOP per observation
     out["ba_assemble_fused"] = {
-        "max_abs_err": abs7, "max_rel_err": max(e7.values()), "ms": ms7, "plain_ms": p7,
+        "max_abs_err": abs7, "max_rel_err": max(e7.values()), "ms": ms7, "oneshot_ms": once7,
+        "b2b_ms": b2b7, "device_ms": dev7, "plain_ms": p7,
         **bound(n_dense * (12 + 4 + 72) + P * (12 + 52) + C * (76 + 168), 350.0 * n_dense, "f32")}
 
     # K6 on the system K7 assembled, bound once as the PCG loop binds it
@@ -1788,14 +1820,16 @@ def phase_tune(dev, smi: str) -> None:
     serving batch's 32,768 query rows and at the burst tail's 2,048 against
     133,120 landmarks of random unit descriptors, by CUDA events around the
     launch and, for the tail, by torch.profiler (an event pair also times
-    the wrapper's host path).  K3: keypoints (warps) per block on both
+    the wrapper's host path).  K5: pairs of one row image a block and ring
+    depth at the exhaustive build's 4,560 pairs of random descriptors, by
+    torch.profiler.  K3: keypoints (warps) per block on both
     octaves of a 32-image VGA batch of random levels, 1,024 and 512
     keypoints an image at the octave's sigmas.  K6: slot groups per point on
     the 512-camera problem and on one of the 96-frame build's size (tp =
     64), call time by CUDA events and device time by torch.profiler; K8 on
     the same two problems (four candidates, as an LM iteration calls it):
     slot groups, with the camera tables staged in shared memory and read
-    through the cache; then the host's time per call of K6's wrapper and of
+    through the cache; K7 on the same two problems: slot groups; then the host's time per call of K6's wrapper and of
     its parts beside two small PyTorch ops."""
     import torch
 
@@ -1897,6 +1931,34 @@ def phase_tune(dev, smi: str) -> None:
             f"best first: " + "; ".join(f"{ms:.3f} ({md:.3f}) {t} {st} {sp}"
                                         for ms, md, t, st, sp in rows) + f"; on {smi}")
 
+    # K5: pairs of one row image a block and ring depth, on the exhaustive
+    # build's shape (96 images x 1024 random unit descriptors, ~90 % valid)
+    from sfmx_torch.kernels import pairs as mp
+
+    x = torch.randn((N_BUILD, 1024, 128), generator=g)
+    d5 = (x / torch.linalg.vector_norm(x, dim=2, keepdim=True)).to(dev)
+    m5 = (torch.rand((N_BUILD, 1024), generator=g) < 0.9).to(dev)
+    p5 = np.array([(a, b) for a in range(N_BUILD) for b in range(a + 1, N_BUILD)], np.int32)
+    out5 = (torch.empty((len(p5), 1024), dtype=torch.float32, device=dev),
+            torch.empty((len(p5), 1024), dtype=torch.int32, device=dev),
+            torch.empty((len(p5), 1024), dtype=torch.bool, device=dev))
+    rows = []
+    for per_block in (1, 2, 4, 8, 16, 32):
+        for stages in (2, 3, 4, 5, 6):
+            def k5(per_block=per_block, stages=stages):
+                mp.launch(d5, m5, p5, out=out5, ratio=0.85, name="tune", pairs_per_block=per_block,
+                          stages=stages)
+
+            rows.append((kernel_ms(k5), per_block, stages))
+    rows.sort()
+    flop = 2.0 * len(p5) * 1024 * 1024 * 128
+    log(f"[tune] K5 {len(p5)} pairs x 1024 x 1024 x 128 bf16 (both directions: "
+        f"{2 * flop / rows[0][0] / 1e9:.1f} TFLOP/s of products at the best, "
+        f"{flop / rows[0][0] / 1e9:.1f} of the function), device ms by torch.profiler for "
+        f"(pairs per block, stages), best first: "
+        + "; ".join(f"{ms:.3f} {pb} {st}" for ms, pb, st in rows) + f"; on {smi}")
+    del d5, m5, out5
+
     for tag, (C, P, O, tp, window, longs) in {"512 cameras": (512, 20000, 200000, 32, 16, 0),
                                               "build-sized": (96, 2267, 36000, 64, 24, 100)}.items():
         prob = {k: torch.as_tensor(v, device=dev) for k, v in
@@ -1904,7 +1966,19 @@ def phase_tune(dev, smi: str) -> None:
         dense = sg.build_dense_obs(prob["pt_id"], prob["cam_id"], P, C, tp)
         uvw = sg.pack_rows(dense, torch.cat([prob["uv"], prob["w_valid"][:, None]], 1))
         cam19 = sg.build_cam_table(prob["intr"], prob["k_idx"], prob["R"], prob["t"])
-        _U, _bc, v13, Wp = sg.ba_assemble_fused(cam19, dense, uvw, prob["X"].T.contiguous(), 0.008)
+        x3 = prob["X"].T.contiguous()
+        asm = sg.AssembleFused(dense, uvw)
+        _U, _bc, v13, Wp = asm(cam19, x3, 0.008)
+        rows = []
+        for groups in (1, 2, 4, 8, 16):
+            def k7(groups=groups):
+                asm(cam19, x3, 0.008, groups=groups)
+
+            rows.append((launch_device_ms(k7, 20)[0], cuda_ms(k7, reps=21, warm=3), groups))
+        rows.sort()
+        log(f"[tune] K7 {tag} C={C} P={P} O={int(dense.cnt.sum())} tp={tp}, device ms (mean "
+            f"traced launches) [call ms by CUDA events] by slot groups, best first: "
+            + "; ".join(f"{md:.4f} [{ms:.4f}] {gr}" for md, ms, gr in rows) + f"; on {smi}")
         cross = sg.SchurMatvec(Wp, dense, schur._damp_inv3_rows(v13[:9], 1e-4).contiguous())
         xv = torch.randn((6, C), generator=g).to(dev)
         parts = []

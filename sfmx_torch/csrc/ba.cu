@@ -20,21 +20,19 @@
 // intermediate in registers.
 //
 // Design:
-//   * Point side of K7: one thread per point loops over its slots.
-//     Adjacent threads read adjacent addresses of every W / uvw / camp row,
-//     so the streams coalesce; the sums over a point's observations (V,
-//     b_p, cost) stay in registers and need no scatter.  The camera of a
-//     slot is read by index from the small per-camera table, which stays in
-//     cache: the TPU kernels' one-hot matmuls, their hi/lo bf16 split and
-//     their per-tile camera window have no counterpart here.
-//   * Point side of K6, which runs 32 times per LM iteration, and K8, whose
-//     time followed the longest track when a thread walked its point's slots
-//     alone: a point's slots are SPLIT ACROSS THREADS.  A block is 32
-//     adjacent points (x, so every row of W still coalesces) by G slot
-//     groups (y); thread (x, y) takes slots y, y+G, ...  The G partial sums
-//     of y = W^T x (K8: of each candidate's cost) meet in shared memory and
-//     are added in group order, so tp dependent gather rounds become tp / G
-//     and the grid grows G-fold on small problems.
+//   * The point side of all three: a point's slots are SPLIT ACROSS
+//     THREADS.  A block is 32 adjacent points (x, so every row of W, uvw and
+//     camp coalesces) by G slot groups (y); thread (x, y) takes slots y,
+//     y+G, ...  The G partial sums of a point (K6: y = W^T x; K7: V, b_p and
+//     the cost; K8: each candidate's cost) meet in shared memory and are
+//     added in group order, so tp dependent gather rounds become tp / G and
+//     the grid grows G-fold on small problems (a thread walking its point's
+//     slots alone ran at the latency of the longest track on a few SMs).
+//     The camera of a slot is read by index from the small per-camera
+//     table (K8 stages its candidates' tables in shared memory where they
+//     fit, K6 and K7 read theirs through the cache): the TPU kernels' one-hot
+//     matmuls, their hi/lo bf16 split and their per-tile camera window have
+//     no counterpart here.
 //   * Camera side (K6: z = sum W vy, K7: U and b_c): the TPU kernels
 //     accumulate across a sequential grid; CUDA blocks run in no order.
 //     Chosen here: a SECOND, CAMERA-MAJOR launch and no atomics.  Why not
@@ -49,11 +47,13 @@
 //     second launch gives each camera to one block, which STREAMS its
 //     contiguous run of the scratch and reduces it with a fixed shuffle +
 //     shared-memory tree: W is never gathered at stride P.
-//       K7: a camera-sorted list of the dense slots (`cam_slot`, with
-//     `cam_ptr` offsets; both built once per solve on the host side of the
-//     wrapper) gives each camera to one block; its threads stride over the
-//     camera's observations and recompute the cheap projection (camera
-//     parameters are per-block constants) before the same tree.
+//       K7: the same pattern.  While the point pass has a slot's Jacobians
+//     in registers it writes the slot's 27 camera-side terms (U's upper
+//     triangle, b_c) to its row `slot_pos` of a camera-major scratch
+//     (n_dense, 28: one padding float, so a row is 7 aligned 16-byte
+//     stores); the second launch gives each camera to one block, whose
+//     threads stream the camera's contiguous rows, 18 row phases by 27 terms
+//     (every load coalesced), and add the phases in order.
 //     Every result of these kernels is bit-reproducible.
 //   * K7 and K8 share `project_residual` and `huber`, so the cost a trial
 //     step is compared with comes from the same arithmetic as the cost of
@@ -63,8 +63,7 @@
 
 namespace {
 
-constexpr int PT_THREADS = 128;   // K7 point pass: threads (= points) per block
-constexpr int CAM_THREADS = 128;  // camera-major kernels: threads per camera block
+constexpr int CAM_THREADS = 128;  // K6's camera pass: threads per camera block
 constexpr int MAX_NC = 16;        // K8: parameter candidates per launch
 
 struct Cam {
@@ -271,109 +270,126 @@ matvec_cam_kernel(const float* __restrict__ zo, const int* __restrict__ cam_ptr,
 }
 
 // ---------------------------------------------------------------------------
-// K7: residuals, Jacobians, Huber weights -> Wp, per-point V9 / b_p / cost
-//     (point pass); per-camera U (36) and b_c (6) (camera pass)
+// K7: residuals, Jacobians, Huber weights -> Wp, per-point V9 / b_p / cost,
+//     each slot's camera-side terms (point pass); per-camera U (36) and b_c
+//     (6) from the camera's run of those terms (camera pass)
 // ---------------------------------------------------------------------------
 // Replaces ba_assemble_fused (segsum.py, _assemble_kernel).  Bound by bytes:
 // it reads O*16 B (uvw, camp) and writes O*72 B of W, against ~350 FLOP per
-// observation.  The point pass keeps V, b_p and the cost in registers and
-// writes W once in K6's layout; the camera pass recomputes the projection
-// (21 + 6 sums per camera, the upper triangle of U mirrored on the way out)
-// instead of storing 42 values per observation.  Camera-side reduction: the
-// camera-major second launch, no atomics.
+// observation.  On the problems BA solves the time was latency: a thread per
+// point walked up to tp = 64 dependent slots (camp -> camera -> projection
+// -> Jacobians -> 18 stores) on 18 blocks at the build's 2,290 points, and a
+// camera block recomputed every observation's projection behind a dependent
+// gather.  Now the point pass splits a point's slots over G groups (K8's
+// shape, G from the layout alone, so every call of a solve sums in one
+// order), reads the camera table through the cache (staging it in shared
+// memory gained nothing at the build's 96 cameras and lost at ba-512), and
+// writes each slot's 27 camera-side terms once, which the camera pass
+// streams.  No atomics: bit-reproducible.
 
-__global__ void __launch_bounds__(PT_THREADS)
+constexpr int ASM_LANES = 32;       // points per block of the K7 point pass
+constexpr int ASM_MAX_GROUPS = 16;  // slot groups (warps) per block of the K7 point pass
+constexpr int NV = 13;              // point rows: V9, b_p, cost
+constexpr int NCAM = 27;            // camera-side terms of a slot: U's upper triangle, b_c
+constexpr int ZC_STRIDE = 28;       // floats a scratch row: 7 aligned float4 stores a slot
+constexpr int ASM_CAM_THREADS = 512;
+constexpr int ASM_CAM_PHASES = ASM_CAM_THREADS / ZC_STRIDE;   // 18 rows in flight a block
+
+__global__ void __launch_bounds__(ASM_LANES * ASM_MAX_GROUPS)
 assemble_point_kernel(const float* __restrict__ cam19, const int* __restrict__ camp,
-                      const int* __restrict__ cnt, const float* __restrict__ uvw,
-                      const float* __restrict__ x3, float delta, float* __restrict__ v13,
-                      float* __restrict__ Wp, int tp, int P, int C) {
-  const int p = blockIdx.x * PT_THREADS + threadIdx.x;
-  if (p >= P) return;
-  const float x0 = x3[p], x1 = x3[P + p], x2 = x3[2 * (size_t)P + p];
-  float v9[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float bp[3] = {0.0f, 0.0f, 0.0f};
-  float cost = 0.0f;
-  const int n = min(cnt[p], tp);
-  for (int j = 0; j < n; ++j) {
-    const Cam m = load_cam(cam19, C, camp[(size_t)j * P + p]);
-    const float u = uvw[(size_t)(3 * j) * P + p];
-    const float v = uvw[(size_t)(3 * j + 1) * P + p];
-    const float wv = uvw[(size_t)(3 * j + 2) * P + p];
-    const Proj q = project_residual(m, x0, x1, x2, u, v);
-    float rho, wh;
-    huber(q.ru, q.rv, delta, rho, wh);
-    cost += 0.5f * rho * wv;
-    wh *= wv;
-    float Ju[6], Jv[6], Pu[3], Pv[3];
-    jacobians(m, q, Ju, Jv, Pu, Pv);
-    float* w = Wp + (size_t)j * 18 * P + p;
+                      const int* __restrict__ cnt, const int* __restrict__ slot_pos,
+                      const float* __restrict__ uvw, const float* __restrict__ x3, float delta,
+                      float* __restrict__ v13, float* __restrict__ Wp, float* __restrict__ zc,
+                      int tp, int P, int C) {
+  __shared__ float part[ASM_MAX_GROUPS * NV * ASM_LANES];     // (G, 13, 32) partials
+  const int lane = threadIdx.x, g = threadIdx.y, G = blockDim.y;
+  const int p = blockIdx.x * ASM_LANES + lane;
+  float acc[NV];
 #pragma unroll
-    for (int a = 0; a < 6; ++a)
+  for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
+  if (p < P) {
+    const float x0 = x3[p], x1 = x3[P + p], x2 = x3[2 * (size_t)P + p];
+    const int n = min(cnt[p], tp);
+    for (int j = g; j < tp; j += G) {
+      float* w = Wp + (size_t)j * 18 * P + p;
+      if (j >= n) {   // pad slots carry W = 0 (K6 never reads them, the layout's contract does)
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        w[(size_t)(a * 3 + k) * P] = wh * (Ju[a] * Pu[k] + Jv[a] * Pv[k]);
+        for (int i = 0; i < 18; ++i) w[(size_t)i * P] = 0.0f;
+        continue;
+      }
+      const Cam m = load_cam(cam19, C, camp[(size_t)j * P + p]);
+      const float u = uvw[(size_t)(3 * j) * P + p];
+      const float v = uvw[(size_t)(3 * j + 1) * P + p];
+      const float wv = uvw[(size_t)(3 * j + 2) * P + p];
+      const Proj q = project_residual(m, x0, x1, x2, u, v);
+      float rho, wh;
+      huber(q.ru, q.rv, delta, rho, wh);
+      acc[12] += 0.5f * rho * wv;
+      wh *= wv;
+      float Ju[6], Jv[6], Pu[3], Pv[3];
+      jacobians(m, q, Ju, Jv, Pu, Pv);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+      for (int a = 0; a < 6; ++a)
 #pragma unroll
-      for (int l = 0; l < 3; ++l) v9[k * 3 + l] += wh * (Pu[k] * Pu[l] + Pv[k] * Pv[l]);
-      bp[k] -= wh * (Pu[k] * q.ru + Pv[k] * q.rv);
+        for (int k = 0; k < 3; ++k)
+          w[(size_t)(a * 3 + k) * P] = wh * (Ju[a] * Pu[k] + Jv[a] * Pv[k]);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int l = 0; l < 3; ++l) acc[k * 3 + l] += wh * (Pu[k] * Pu[l] + Pv[k] * Pv[l]);
+        acc[9 + k] -= wh * (Pu[k] * q.ru + Pv[k] * q.rv);
+      }
+      float z[ZC_STRIDE];
+      int i = 0;
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int b = a; b < 6; ++b) z[i++] = wh * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) z[21 + a] = -wh * (Ju[a] * q.ru + Jv[a] * q.rv);
+      z[NCAM] = 0.0f;
+      float4* zr = reinterpret_cast<float4*>(zc + (size_t)slot_pos[(size_t)j * P + p] * ZC_STRIDE);
+#pragma unroll
+      for (int v4 = 0; v4 < ZC_STRIDE / 4; ++v4)
+        zr[v4] = make_float4(z[4 * v4], z[4 * v4 + 1], z[4 * v4 + 2], z[4 * v4 + 3]);
     }
   }
-  // pad slots carry W = 0 (K6 never reads them, the layout's contract does)
-  for (int j = n; j < tp; ++j) {
-    float* w = Wp + (size_t)j * 18 * P + p;
 #pragma unroll
-    for (int i = 0; i < 18; ++i) w[(size_t)i * P] = 0.0f;
+  for (int i = 0; i < NV; ++i) part[(g * NV + i) * ASM_LANES + lane] = acc[i];
+  __syncthreads();
+  if (p >= P) return;
+  // warp g sums rows g, g+G, ...: the point's groups in order
+  for (int i = g; i < NV; i += G) {
+    float s = part[i * ASM_LANES + lane];
+    for (int q = 1; q < G; ++q) s += part[(q * NV + i) * ASM_LANES + lane];
+    v13[(size_t)i * P + p] = s;
   }
-#pragma unroll
-  for (int i = 0; i < 9; ++i) v13[(size_t)i * P + p] = v9[i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) v13[(size_t)(9 + i) * P + p] = bp[i];
-  v13[(size_t)12 * P + p] = cost;
 }
 
-__global__ void __launch_bounds__(CAM_THREADS)
-assemble_cam_kernel(const float* __restrict__ cam19, const int* __restrict__ cam_ptr,
-                    const int* __restrict__ cam_slot, const float* __restrict__ uvw,
-                    const float* __restrict__ x3, float delta, float* __restrict__ U36,
-                    float* __restrict__ bc6, int P, int C) {
-  // 21 upper-triangle entries of U, then the 6 of b_c
-  __shared__ float smem[(CAM_THREADS / 32) * 27];
-  const int c = blockIdx.x;
+__global__ void __launch_bounds__(ASM_CAM_THREADS)
+assemble_cam_kernel(const float* __restrict__ zc, const int* __restrict__ cam_ptr,
+                    float* __restrict__ U36, float* __restrict__ bc6) {
+  __shared__ float part[ASM_CAM_PHASES * ZC_STRIDE];
+  const int c = blockIdx.x, tid = threadIdx.x;
   const int beg = cam_ptr[c], end = cam_ptr[c + 1];
-  const Cam m = load_cam(cam19, C, c);
-  float acc[27];
-#pragma unroll
-  for (int i = 0; i < 27; ++i) acc[i] = 0.0f;
-  for (int k = beg + threadIdx.x; k < end; k += CAM_THREADS) {
-    const int s = cam_slot[k];
-    const int j = s / P, p = s - j * P;
-    const float u = uvw[(size_t)(3 * j) * P + p];
-    const float v = uvw[(size_t)(3 * j + 1) * P + p];
-    const float wv = uvw[(size_t)(3 * j + 2) * P + p];
-    const Proj q = project_residual(m, x3[p], x3[P + p], x3[2 * (size_t)P + p], u, v);
-    float rho, wh;
-    huber(q.ru, q.rv, delta, rho, wh);
-    wh *= wv;
-    float Ju[6], Jv[6], Pu[3], Pv[3];
-    jacobians(m, q, Ju, Jv, Pu, Pv);
-    int i = 0;
-#pragma unroll
-    for (int a = 0; a < 6; ++a)
-#pragma unroll
-      for (int b = a; b < 6; ++b) acc[i++] += wh * (Ju[a] * Ju[b] + Jv[a] * Jv[b]);
-#pragma unroll
-    for (int a = 0; a < 6; ++a) acc[21 + a] -= wh * (Ju[a] * q.ru + Jv[a] * q.rv);
+  const int phase = tid / ZC_STRIDE, term = tid - phase * ZC_STRIDE;
+  if (phase < ASM_CAM_PHASES && term < NCAM) {
+    // thread (phase, term) adds term `term` of rows beg + phase, + 18, ... in
+    // order: the block's loads of one step are 18 whole contiguous rows
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = beg + phase; k < end; k += ASM_CAM_PHASES) acc += zc[(size_t)k * ZC_STRIDE + term];
+    part[phase * ZC_STRIDE + term] = acc;
   }
-  block_sum<27>(acc, smem);
-  if (threadIdx.x < 27) {
-    float v = 0.0f;
+  __syncthreads();
+  if (tid < NCAM) {
+    float v = part[tid];
 #pragma unroll
-    for (int wq = 0; wq < CAM_THREADS / 32; ++wq) v += smem[wq * 27 + threadIdx.x];
-    if (threadIdx.x >= 21) {
-      bc6[(size_t)c * 6 + (threadIdx.x - 21)] = v;
+    for (int ph = 1; ph < ASM_CAM_PHASES; ++ph) v += part[ph * ZC_STRIDE + tid];
+    if (tid >= 21) {
+      bc6[(size_t)c * 6 + (tid - 21)] = v;
     } else {
-      int a = 0, i = threadIdx.x;        // upper-triangle index -> (a, b)
+      int a = 0, i = tid;        // upper-triangle index -> (a, b)
       while (i >= 6 - a) {
         i -= 6 - a;
         ++a;
@@ -522,8 +538,6 @@ cudaError_t launch_cost(const float* cam19s, const int* camp, const int* cnt, co
   return cudaGetLastError();
 }
 
-inline int point_blocks(int P) { return (P + PT_THREADS - 1) / PT_THREADS; }
-
 }  // namespace
 
 extern "C" {
@@ -551,21 +565,24 @@ int ba_schur_matvec(const float* Wp, const int* camp, const int* cnt, const int*
   return cudaGetLastError();
 }
 
-// K7.  cam19 (19, C), uvw (tp*3, P) rows [u, v, w_valid] per slot, x3 (3, P).
-// Writes v13 (13, P) rows 0-8 V9, 9-11 b_p, 12 cost partial; Wp (tp*18, P);
-// U36 (C, 36); bc6 (C, 6).
-int ba_assemble(const float* cam19, const int* camp, const int* cnt, const float* uvw,
-                const float* x3, float delta, const int* cam_ptr, const int* cam_slot,
-                float* v13, float* Wp, float* U36, float* bc6, int tp, int P, int C,
+// K7.  cam19 (19, C), camp (tp, P), cnt (P,), slot_pos (tp, P) i32 place of
+// each dense slot in camera order, uvw (tp*3, P) rows [u, v, w_valid] per
+// slot, x3 (3, P), cam_ptr (C+1,) offsets of each camera's run, zc (n_dense,
+// 28) scratch (16-byte aligned).  Writes v13 (13, P) rows 0-8 V9, 9-11 b_p, 12 cost partial; Wp
+// (tp*18, P); U36 (C, 36); bc6 (C, 6).  `groups` (1..16) threads share a
+// point's slots.  Returns cudaGetLastError() after the two launches.
+int ba_assemble(const float* cam19, const int* camp, const int* cnt, const int* slot_pos,
+                const float* uvw, const float* x3, float delta, const int* cam_ptr, float* zc,
+                float* v13, float* Wp, float* U36, float* bc6, int tp, int P, int C, int groups,
                 void* stream) {
-  if (tp <= 0 || P <= 0 || C <= 0) return cudaErrorInvalidValue;
+  if (tp <= 0 || P <= 0 || C <= 0 || groups < 1 || groups > ASM_MAX_GROUPS)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  assemble_point_kernel<<<point_blocks(P), PT_THREADS, 0, st>>>(cam19, camp, cnt, uvw, x3, delta,
-                                                                v13, Wp, tp, P, C);
-  cudaError_t err = cudaGetLastError();
+  assemble_point_kernel<<<(P + ASM_LANES - 1) / ASM_LANES, dim3(ASM_LANES, groups), 0, st>>>(
+      cam19, camp, cnt, slot_pos, uvw, x3, delta, v13, Wp, zc, tp, P, C);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  assemble_cam_kernel<<<C, CAM_THREADS, 0, st>>>(cam19, cam_ptr, cam_slot, uvw, x3, delta, U36,
-                                                 bc6, P, C);
+  assemble_cam_kernel<<<C, ASM_CAM_THREADS, 0, st>>>(zc, cam_ptr, U36, bc6);
   return cudaGetLastError();
 }
 

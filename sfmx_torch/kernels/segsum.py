@@ -9,9 +9,9 @@ blocks are written once per LM iteration by the assembly (K7) in the
 shaped: the point axis is not padded to a tile multiple nor the camera axis
 to 128, vectors carry 6/3/9 rows instead of 8/8/16, and there is no camera
 window.  It adds the per-point slot count, a camera-sorted list of the
-dense slots, which K7's camera-major second launch walks, and its inverse
-(``slot_pos``: every dense slot's place in that list), through which K6's
-point pass writes a camera-major scratch that its second launch streams
+dense slots (``cam_slot``, ``cam_ptr``) and its inverse (``slot_pos``:
+every dense slot's place in that list), through which the point passes of
+K6 and K7 write a camera-major scratch that their second launches stream
 (see ``sfmx_torch/csrc/ba.cu``).
 
 For CUDA tensors each wrapper launches the hand-written kernels in
@@ -240,6 +240,21 @@ COST_MAX_GROUPS = 16         # threads that may share a point's slots in K8's po
 COST_FILL_THREADS = 65536    # K8 doubles its slot groups until its grid holds this many threads
 COST_CAM_SMEM_BYTES = 48 * 1024   # K8 stages the camera tables up to this size
 
+ASM_LANES = 32               # points per block of K7's point pass
+ASM_MAX_GROUPS = 16          # threads that may share a point's slots in K7's point pass
+ASM_FILL_THREADS = 65536     # K7 doubles its slot groups until its grid holds this many threads
+ASM_CAM_TERMS = 27           # camera-side terms of a slot: U's upper triangle, then b_c
+ASM_ZC_STRIDE = 28           # floats a row of K7's scratch: 27 terms and a pad (float4 stores)
+ASM_CAM_PHASES = 18          # rows of the scratch a camera block reads at once (512 // 28)
+
+
+def _slot_groups(tp: int, P: int, lanes: int, max_groups: int, fill: int) -> int:
+    n_blocks = (P + lanes - 1) // lanes
+    groups = 1
+    while groups < max_groups and groups < tp and lanes * groups * n_blocks < fill:
+        groups *= 2
+    return groups
+
 
 def cost_slot_groups(tp: int, P: int) -> int:
     """K8's slot groups for a (tp, P) layout: doubled from 1 while the grid
@@ -247,12 +262,14 @@ def cost_slot_groups(tp: int, P: int) -> int:
     groups, up to COST_MAX_GROUPS (``chip_smoke.py --tune``: 16 on the
     build's 2,290 points, 4 on 20,000).  A function of the layout alone,
     so every launch on one layout, whatever its nc, sums in one order."""
-    n_blocks = (P + COST_LANES - 1) // COST_LANES
-    groups = 1
-    while (groups < COST_MAX_GROUPS and groups < tp
-           and COST_LANES * groups * n_blocks < COST_FILL_THREADS):
-        groups *= 2
-    return groups
+    return _slot_groups(tp, P, COST_LANES, COST_MAX_GROUPS, COST_FILL_THREADS)
+
+
+def assemble_slot_groups(tp: int, P: int) -> int:
+    """K7's slot groups for a (tp, P) layout, by K8's rule with K7's
+    constants (``chip_smoke.py --tune``).  A function of the layout alone,
+    so every assembly of a solve sums V, b_p and the cost in one order."""
+    return _slot_groups(tp, P, ASM_LANES, ASM_MAX_GROUPS, ASM_FILL_THREADS)
 
 
 def _tree32(s: torch.Tensor) -> torch.Tensor:
@@ -298,6 +315,71 @@ def ba_cost_fused_grouped(cam19s, dense: DenseObs, uvw, x3s, delta: float, nc: i
     return torch.stack(out)
 
 
+def assemble_cam_scratch(terms: torch.Tensor, dense: DenseObs) -> torch.Tensor:
+    """(27, tp, P) per-slot camera-side terms -> the (n_dense, 27)
+    camera-major scratch K7's point pass writes: row ``slot_pos`` of every
+    real slot."""
+    real = torch.arange(dense.camp.shape[0], device=terms.device)[:, None] < dense.cnt[None, :]
+    zc = torch.zeros((dense.cam_slot.shape[0], terms.shape[0]), dtype=terms.dtype,
+                     device=terms.device)
+    zc[dense.slot_pos[real].long()] = terms[:, real].T
+    return zc
+
+
+def ba_assemble_fused_grouped(cam19, dense: DenseObs, uvw, x3, delta: float,
+                              groups: int | None = None):
+    """Plain-PyTorch mirror of the K7 kernel's decomposition and order of
+    sums, for tests; returns what ``ba_assemble_fused_plain`` returns.
+    Point pass: group g of ``groups`` (by default ``assemble_slot_groups``)
+    adds the terms of slots g, g+groups, ... of a point in order, and a
+    point's group partials meet in group order; every real slot's 27
+    camera-side terms go to its row of the camera-major scratch
+    (``assemble_cam_scratch``).  Camera pass: phase f of ASM_CAM_PHASES adds
+    rows f, f+18, ... of the camera's run in order, and the phases meet in
+    order."""
+    tp, P = dense.camp.shape
+    C = cam19.shape[1]
+    groups = assemble_slot_groups(tp, P) if groups is None else groups
+    g = list(cam19[:, dense.camp.long()])
+    uvw = uvw.reshape(tp, 3, P)
+    u, v, wv = uvw[:, 0], uvw[:, 1], uvw[:, 2]
+    ru, rv, aux = _proj_math(g, x3[0], x3[1], x3[2], u, v)
+    rho, wh = _huber_rows(ru, rv, delta)
+    real = torch.arange(tp, device=cam19.device)[:, None] < dense.cnt[None, :]
+    cost = 0.5 * rho * wv
+    wh = wh * wv
+    Ju, Jv, Pu, Pv = _jac_rows(g, aux)
+    Wp = torch.stack([torch.where(real, wh * (Ju[a] * Pu[k] + Jv[a] * Pv[k]), 0.0)
+                      for a in range(6) for k in range(3)], dim=1).reshape(tp * 18, P)
+    pt = torch.stack([wh * (Pu[k] * Pu[l] + Pv[k] * Pv[l]) for k in range(3) for l in range(3)]
+                     + [-wh * (Pu[k] * ru + Pv[k] * rv) for k in range(3)] + [cost])
+    pt = torch.where(real, pt, torch.zeros_like(pt))                # (13, tp, P)
+    v13 = None
+    for grp in range(groups):
+        acc = torch.zeros_like(pt[:, 0])
+        for j in range(grp, tp, groups):
+            acc = acc + pt[:, j]
+        v13 = acc if v13 is None else v13 + acc
+    terms = torch.stack([wh * (Ju[a] * Ju[b] + Jv[a] * Jv[b]) for a in range(6)
+                         for b in range(a, 6)] + [-wh * (Ju[a] * ru + Jv[a] * rv)
+                                                  for a in range(6)])
+    zc = assemble_cam_scratch(terms, dense)
+    runs = (dense.cam_ptr[1:] - dense.cam_ptr[:-1]).long()
+    cam_of = torch.repeat_interleave(torch.arange(C, device=cam19.device), runs)
+    at = torch.arange(zc.shape[0], device=cam19.device) - dense.cam_ptr[:-1].long()[cam_of]
+    part = torch.zeros((C * ASM_CAM_PHASES, ASM_CAM_TERMS), dtype=zc.dtype, device=zc.device)
+    part.index_add_(0, cam_of * ASM_CAM_PHASES + at % ASM_CAM_PHASES, zc)
+    part = part.reshape(C, ASM_CAM_PHASES, ASM_CAM_TERMS)
+    cam = part[:, 0]
+    for f in range(1, ASM_CAM_PHASES):
+        cam = cam + part[:, f]
+    iu = torch.triu_indices(6, 6)
+    U = torch.zeros((C, 6, 6), dtype=cam.dtype, device=cam.device)
+    U[:, iu[0], iu[1]] = cam[:, :21]
+    U[:, iu[1], iu[0]] = cam[:, :21]
+    return U, cam[:, 21:].contiguous(), v13, Wp
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -307,7 +389,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(LIB)
     if not getattr(lib, "_sfmx_typed", False):
         lib.ba_schur_matvec.argtypes = [_P] * 11 + [_I] * 5 + [_P]
-        lib.ba_assemble.argtypes = [_P] * 5 + [_F] + [_P] * 6 + [_I, _I, _I, _P]
+        lib.ba_assemble.argtypes = [_P] * 6 + [_F] + [_P] * 6 + [_I] * 4 + [_P]
         lib.ba_cost.argtypes = [_P] * 5 + [_F] + [_P] * 3 + [_I] * 5 + [ctypes.c_bool, _P]
         for fn in (lib.ba_schur_matvec, lib.ba_assemble, lib.ba_cost, lib.ba_max_candidates):
             fn.restype = _I
@@ -410,7 +492,67 @@ def schur_cross_matvec(Wp, dense: DenseObs, Vinv9, x6, bias3=None):
     return SchurMatvec(Wp, dense, Vinv9)(x6, bias3)
 
 
-def ba_assemble_fused(cam19, dense: DenseObs, uvw, x3, delta: float):
+class AssembleFused:
+    """K7 bound to one layout and its packed observations: ``dense`` and
+    ``uvw`` are checked and the camera-major scratch allocated once here,
+    and every call checks only the camera table and the points.
+    ``lm.ba_solve`` binds one per solve and calls it once per LM iteration
+    (through ``schur.reduce_system_fused``).
+
+    On CUDA tensors a call launches the two kernels or raises; on CPU
+    tensors it runs the plain version.  A call returns FRESH outputs: the
+    Schur system binds its ``Wp`` for the whole LM iteration, so reusing one
+    buffer across iterations would be a trap.  The scratch is this object's,
+    so its calls run on one stream, in order.
+    """
+
+    def __init__(self, dense: DenseObs, uvw):
+        self.dense, self.uvw = dense, uvw
+        self.tp, self.P = tp, P = dense.camp.shape
+        self.C = C = dense.cam_ptr.shape[0] - 1
+        self.cpu = _all_cpu(uvw, *dense)
+        if self.cpu:
+            return
+        self.dev = dev = uvw.device
+        i32 = torch.int32
+        _check("ba_assemble_fused", dev, camp=(dense.camp, i32, (tp, P)),
+               cnt=(dense.cnt, i32, (P,)), slot_pos=(dense.slot_pos, i32, (tp, P)),
+               cam_ptr=(dense.cam_ptr, i32, (C + 1,)), uvw=(uvw, torch.float32, (tp * 3, P)))
+        self.lib = _lib()
+        self.groups = assemble_slot_groups(tp, P)
+        self.zc = torch.empty((dense.cam_slot.shape[0], ASM_ZC_STRIDE), dtype=torch.float32,
+                              device=dev)
+        self.static = (dense.camp.data_ptr(), dense.cnt.data_ptr(), dense.slot_pos.data_ptr(),
+                       uvw.data_ptr())
+
+    def __call__(self, cam19, x3, delta: float, groups: int | None = None):
+        if self.cpu and _all_cpu(cam19, x3):
+            return ba_assemble_fused_plain(cam19, self.dense.camp, self.uvw, x3, delta)
+        if self.cpu:
+            raise ValueError("ba_assemble_fused: the layout is on the CPU, the parameters are not")
+        tp, P, C, dev = self.tp, self.P, self.C, self.dev
+        f32 = torch.float32
+        for key, x, shape in (("cam19", cam19, (19, C)), ("x3", x3, (3, P))):
+            if (x.device != dev or x.dtype != f32 or tuple(x.shape) != shape
+                    or not x.is_contiguous()):
+                raise ValueError(f"ba_assemble_fused: {key} must be contiguous float32 {shape} on "
+                                 f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+        v13 = torch.empty((13, P), dtype=f32, device=dev)
+        Wp = torch.empty((tp * 18, P), dtype=f32, device=dev)
+        U = torch.empty((C, 6, 6), dtype=f32, device=dev)
+        bc = torch.empty((C, 6), dtype=f32, device=dev)
+        err = self.lib.ba_assemble(cam19.data_ptr(), *self.static, x3.data_ptr(), float(delta),
+                                   self.dense.cam_ptr.data_ptr(), self.zc.data_ptr(),
+                                   v13.data_ptr(), Wp.data_ptr(), U.data_ptr(), bc.data_ptr(),
+                                   tp, P, C, self.groups if groups is None else groups,
+                                   _build.stream_ptr(dev))
+        _raise("ba_assemble_fused", self.lib, err)
+        _build.LAUNCHES.add("ba_assemble_fused", 2)       # point pass, camera pass
+        return U, bc, v13, Wp
+
+
+def ba_assemble_fused(cam19, dense: DenseObs, uvw, x3, delta: float,
+                      groups: int | None = None):
     """K7, one LM iteration's assembly: residuals, analytic Jacobians, Huber
     weights, W blocks, per-point V / b_p / cost, per-camera U / b_c.
 
@@ -418,29 +560,15 @@ def ba_assemble_fused(cam19, dense: DenseObs, uvw, x3, delta: float):
     per slot (``pack_rows``, once per solve), x3 (3, P) points, delta the
     Huber threshold in normalized units.  Returns (U (C,6,6), b_c (C,6),
     v13 (13, P): rows 0-8 V9, 9-11 b_p, 12 per-point cost; Wp (tp*18, P)).
+    A caller with many assemblies on one layout keeps the ``AssembleFused``.
+
+    ``groups`` (1..16 threads share a point's slots; by default
+    ``assemble_slot_groups`` of the layout) is the kernel's shape: a sweep
+    parameter.  The results depend on it in their last bits.
     """
     if _all_cpu(cam19, dense.camp, uvw, x3):
         return ba_assemble_fused_plain(cam19, dense.camp, uvw, x3, delta)
-    tp, P = dense.camp.shape
-    C = cam19.shape[1]
-    dev = cam19.device
-    f32, i32 = torch.float32, torch.int32
-    _check("ba_assemble_fused", dev, cam19=(cam19, f32, (19, C)), camp=(dense.camp, i32, (tp, P)),
-           cnt=(dense.cnt, i32, (P,)), uvw=(uvw, f32, (tp * 3, P)), x3=(x3, f32, (3, P)),
-           cam_ptr=(dense.cam_ptr, i32, (C + 1,)),
-           cam_slot=(dense.cam_slot, i32, dense.cam_slot.shape))
-    lib = _lib()
-    v13 = torch.empty((13, P), dtype=f32, device=dev)
-    Wp = torch.empty((tp * 18, P), dtype=f32, device=dev)
-    U = torch.empty((C, 6, 6), dtype=f32, device=dev)
-    bc = torch.empty((C, 6), dtype=f32, device=dev)
-    err = lib.ba_assemble(cam19.data_ptr(), dense.camp.data_ptr(), dense.cnt.data_ptr(),
-                          uvw.data_ptr(), x3.data_ptr(), float(delta), dense.cam_ptr.data_ptr(),
-                          dense.cam_slot.data_ptr(), v13.data_ptr(), Wp.data_ptr(), U.data_ptr(),
-                          bc.data_ptr(), tp, P, C, _build.stream_ptr(dev))
-    _raise("ba_assemble_fused", lib, err)
-    _build.LAUNCHES.add("ba_assemble_fused", 2)
-    return U, bc, v13, Wp
+    return AssembleFused(dense, uvw)(cam19, x3, delta, groups)
 
 
 class CostFused:

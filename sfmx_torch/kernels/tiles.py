@@ -7,7 +7,8 @@ retrieval extras, so each image takes part in ~window pairs.  The host
 packs the pairs into (A-tile x B-tile) blocks of image-index space
 (``pack_tiles``, bit-identical to the reference's); on the card a block of
 the K5 kernel then owns 128 rows of one a-image and loops over the up to
-Tb b-images its tile lists, so its A fragments load once for all of them.
+Tb b-images its tile lists, so its A fragments load once for all of them
+(the swapped list, for the column's best row, is grouped as K5 groups it).
 Pairs in tiles with fewer than ``min_fill`` pairs go through K5.  K9's
 arithmetic is K5's, element for element, so the two agree exactly.
 Scores leave unpacked (f32 score, int32 index, bool valid): the reference's
@@ -115,9 +116,8 @@ def match_pairs_float_tiled(descs: torch.Tensor, masks: torch.Tensor, pairs, *,
         else:
             pairs_mod._check_cuda(descs, masks)
             idx32 = torch.zeros((Np, K), dtype=torch.int32, device=dev)
-            pairs_mod.launch(descs, masks, torch.as_tensor(pairs_np[slot_pairs]),
-                             out=(score, idx32, valid), out_row=rows,
-                             group_start=torch.as_tensor(group_start), ratio=ratio,
+            pairs_mod.launch(descs, masks, pairs_np[slot_pairs], out=(score, idx32, valid),
+                             out_row=slot_pairs, group_start=group_start, ratio=ratio,
                              cross_check=cross_check, name="match_pairs_tiled")
             idx[rows] = idx32[rows].to(torch.int64)
     if len(rest_idx) > 0:

@@ -106,8 +106,9 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
         if not tp_cap:
             raise ValueError("dense_cg requires tp_cap (track-length bound)")
         dense = segsum.build_dense_obs(pt_id, cam_id, n_pts, n_cams, tp_cap)
-        # packed once per solve for K7 and K8, and K8 bound to it
+        # packed once per solve for K7 and K8, and both bound to it
         uvw = segsum.pack_rows(dense, torch.cat([uv, w_valid[:, None]], dim=1))
+        assemble = segsum.AssembleFused(dense, uvw)
         cost_fused = segsum.CostFused(dense, uvw)
         if ov_cap:
             start = torch.searchsorted(pt_id, torch.arange(n_pts, device=dev, dtype=pt_id.dtype))
@@ -147,7 +148,7 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
                                                   ov[3] * huber_weight(r2o, huber_n),
                                                   ov[0], ov[1], n_cams, n_pts)
                 ov_cost = robust_cost(r2o, ov[3], huber_n)
-            sysd, _ = schur.reduce_system_fused(intr, k_idx, R, t, X, dense, uvw, state.lam,
+            sysd, _ = schur.reduce_system_fused(intr, k_idx, R, t, X, assemble, state.lam,
                                                 huber_n, ov_blocks=ov_blocks, ov_cost=ov_cost)
             dx_c, _ = schur.pcg_dense(sysd, iters=cg_iters, fixed_cam_mask=fixed_cam_mask)
             dx_p = schur.solve_points_dense(sysd, dx_c)

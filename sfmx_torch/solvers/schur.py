@@ -253,20 +253,21 @@ def _cross(sysd: SchurSystemD, x6: torch.Tensor, bias3):
     return z6, vy3
 
 
-def reduce_system_fused(intr, k_idx, R, t, X, dense: segsum.DenseObs, uvw, lam, delta: float,
-                        ov_blocks: NormalBlocksP | None = None, ov_cost=None):
+def reduce_system_fused(intr, k_idx, R, t, X, assemble: segsum.AssembleFused, lam,
+                        delta: float, ov_blocks: NormalBlocksP | None = None, ov_cost=None):
     """One K7 pass (residuals, Jacobians, normal blocks) and the Schur
     reduction in the dense layout.  Returns (SchurSystemD, cost); the robust
     cost at the current parameters is a by-product of the assembly.
 
     ov_blocks / ov_cost: planes-assembled normal blocks and robust cost of
     the overflow observations; they fold into U, b_c, V and b_p here and
-    their W blocks ride every later matvec.
+    their W blocks ride every later matvec.  ``assemble``: K7 bound to the
+    dense layout and its packed observations once per solve.
     """
     C = R.shape[0]
     cam19 = segsum.build_cam_table(intr, k_idx, R, t)
     x3 = X.T.contiguous()
-    U, b_c, v13, Wp = segsum.ba_assemble_fused(cam19, dense, uvw, x3, delta)
+    U, b_c, v13, Wp = assemble(cam19, x3, delta)
     cost = torch.sum(v13[12])
     v9r, bpr = v13[:9], v13[9:12]
     ov = (None, None, None)
@@ -277,7 +278,7 @@ def reduce_system_fused(intr, k_idx, R, t, X, dense: segsum.DenseObs, uvw, lam, 
         v9r = v9r + ov_blocks.V9.T
         bpr = bpr + ov_blocks.b_p.T
         ov = (ov_blocks.W18, ov_blocks.cam_id, ov_blocks.pt_id)
-    cross = segsum.SchurMatvec(Wp, dense, _damp_inv3_rows(v9r, lam).contiguous())
+    cross = segsum.SchurMatvec(Wp, assemble.dense, _damp_inv3_rows(v9r, lam).contiguous())
     sysd = SchurSystemD(cross, bpr.contiguous(), _damp(U, lam), b_c, *ov)
     # b_red = b_c - scatter_cam(W V^-1 b_p): the kernel with x = 0
     z6, _ = _cross(sysd, torch.zeros((6, C), dtype=torch.float32, device=R.device), sysd.bp3)

@@ -142,8 +142,9 @@ def test_reduce_and_pcg_dense_match_planes(tp_cap):
         ov_cost = tlm.robust_cost(r2o, tw[ovi], delta)
     else:
         assert tp_cap == 32
-    sysd, cost = tschur.reduce_system_fused(T(intr), T(k_idx), T(R), T(t), T(X), d, uvw, lam,
-                                            delta, ov_blocks=ov_blocks, ov_cost=ov_cost)
+    sysd, cost = tschur.reduce_system_fused(T(intr), T(k_idx), T(R), T(t), T(X),
+                                            tseg.AssembleFused(d, uvw), lam, delta,
+                                            ov_blocks=ov_blocks, ov_cost=ov_cost)
     np.testing.assert_allclose(float(cost), float(jlm.robust_cost(jnp.sum(r * r, -1), w, delta)),
                                rtol=1e-4)
     assert rel(sysd.Ud.numpy(), sysp.Ud) < 1e-4

@@ -343,12 +343,15 @@ def _check_pairs(got, ref, near, tol=1e-5):
     return int(near.sum())
 
 
-@pytest.mark.parametrize("K,D,p_mask", [(256, 128, 0.0), (200, 128, 0.2), (1024, 64, 0.1)])
+@pytest.mark.parametrize("K,D,p_mask", [(256, 128, 0.0), (200, 128, 0.2), (1024, 64, 0.1),
+                                         (1024, 128, 0.0), (1000, 128, 0.1), (513, 64, 0.2),
+                                         (513, 128, 0.0), (1000, 64, 0.0)])
 def test_k5_match_pairs_fused_matches_plain(cuda, K, D, p_mask):
-    """K5 against the dense plain matcher on the card, ragged K and D < 128
-    included: score atol 1e-5 (summation order), valid and accepted idx
-    equal outside near-ties; a masked row scores NEG with index 0; two
-    launches counted (pair kernel + finish)."""
+    """K5 against the dense plain matcher on the card, ragged K (a tile that
+    runs into the next image's rows) and D < 128 included: score atol 1e-5
+    (summation order), valid and accepted idx equal outside near-ties; a
+    masked row scores NEG with index 0; two launches counted (the pair
+    kernel with the swapped list in it, then finish)."""
     g = torch.Generator().manual_seed(K + D)
     C = 6
     d = _pair_descs(g, C, K, D).to(cuda)
@@ -367,10 +370,60 @@ def test_k5_match_pairs_fused_matches_plain(cuda, K, D, p_mask):
     assert int(nocc.valid.sum()) >= int(got.valid.sum())
 
 
+@pytest.mark.parametrize("per_block", [1, 4, 16])
+@pytest.mark.parametrize("stages", [2, 4, 6])
+def test_k5_pairs_per_block_and_ring_depth(cuda, per_block, stages):
+    """Groups of 1, 4 and 16 pairs of one row image a block and rings of 2-6
+    stages: the same bits in every field as the default shape (a pair's
+    arithmetic does not depend on its group), and the plain matcher's
+    result outside near-ties, on an exhaustive list of 9 images, both ways."""
+    g = torch.Generator().manual_seed(per_block)
+    C, K = 9, 1000
+    d = _pair_descs(g, C, K).to(cuda)
+    m = (torch.rand((C, K), generator=g) >= 0.1).to(cuda)
+    pairs = np.array([(a, b) for a in range(C) for b in range(C) if a != b], np.int32)
+    ref = mp.match_pairs_fused(d, m, pairs, ratio=0.85)
+    out = (torch.empty((len(pairs), K), dtype=torch.float32, device=cuda),
+           torch.empty((len(pairs), K), dtype=torch.int32, device=cuda),
+           torch.empty((len(pairs), K), dtype=torch.bool, device=cuda))
+    mp.launch(d, m, pairs, out=out, ratio=0.85, name="sweep", pairs_per_block=per_block,
+              stages=stages)
+    assert torch.equal(out[0], ref.score) and torch.equal(out[1].long(), ref.idx)
+    assert torch.equal(out[2], ref.valid)
+    _check_pairs(ref, mm.match_pairs_float(d, m, pairs, ratio=0.85),
+                 pair_near_ties(d, m, pairs, 0.85))
+
+
+def test_k5_exact_tie_only_the_lower_row_passes(cuda):
+    """Two a-rows with one descriptor tie exactly for their best column (the
+    same bf16 products in the same order): only the lower row passes the
+    mutual check, on the card as in the plain matcher, for K5, K9 and K10's
+    j1."""
+    g = torch.Generator().manual_seed(7)
+    C, K = 9, 1000
+    d = _pair_descs(g, C, K)
+    d[0, 700] = d[0, 300]
+    d[1, 40] = d[0, 300]
+    d[0, 999] = d[0, 1]
+    d[1, 600] = d[0, 1]
+    d = d.to(cuda)
+    m = torch.ones((C, K), dtype=torch.bool, device=cuda)
+    pairs = np.array([(a, b) for a in range(C) for b in range(a + 1, min(a + 9, C))], np.int32)
+    for res in (mp.match_pairs_fused(d, m, pairs, ratio=0.85),
+                mtl.match_pairs_float_tiled(d, m, pairs, ratio=0.85, min_fill=1),
+                mm.match_pairs_float(d, m, pairs, ratio=0.85)):
+        assert int(res.idx[0, 300]) == 40 and int(res.idx[0, 700]) == 40
+        assert bool(res.valid[0, 300]) and not bool(res.valid[0, 700])
+        assert bool(res.valid[0, 1]) and not bool(res.valid[0, 999])
+    j1 = mp.match_pairs_top2(d, pairs[:1])[3]
+    assert int(j1[0, 40]) == 300 and int(j1[0, 600]) == 1
+
+
 def test_k10_match_pairs_top2_matches_plain(cuda):
     """K10 (the raw mode): s1/s2 atol 1e-5; i1 equal where the row's best
     two columns differ by more than 1e-5, j1 where the column's best two
-    rows do; the planted duplicates resolve to the lower index."""
+    rows do; the planted duplicates resolve to the lower index; one launch
+    (the swapped list gives j1 directly, no finish)."""
     g = torch.Generator().manual_seed(10)
     C, K = 5, 384
     d = _pair_descs(g, C, K).to(cuda)
@@ -378,7 +431,7 @@ def test_k10_match_pairs_top2_matches_plain(cuda):
     before = _build.LAUNCHES.get("match_pairs_top2")
     s1, i1, s2, j1 = mp.match_pairs_top2(d, pairs)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES.get("match_pairs_top2") == before + 2
+    assert _build.LAUNCHES.get("match_pairs_top2") == before + 1
     r1, ri, r2, rj = mp.match_pairs_top2_plain(d, pairs)
     assert float((s1 - r1).abs().max()) <= 1e-5 and float((s2 - r2).abs().max()) <= 1e-5
     assert bool((i1 == ri)[(r1 - r2) > 1e-5].all())
@@ -491,6 +544,27 @@ def test_k7_ba_assemble_matches_plain(cuda, shape):
     assert torch.equal(U, U.transpose(1, 2))
     assert float(U[-1].abs().max()) == 0.0 and float(bc[-1].abs().max()) == 0.0
     assert float(v13[:, -3:].abs().max()) == 0.0 and torch.isfinite(Wp).all()
+
+
+@pytest.mark.parametrize("shape", BA_SHAPES)
+def test_k7_slot_groups_and_repeat(cuda, shape):
+    """K7 at several slot-group counts: within the plain version's
+    tolerances; two calls bit-equal in all four outputs, the bound object
+    equal to the one-shot wrapper; more groups than a block holds raise."""
+    p, d, uvw, cam19, x3, delta = _ba_case(cuda, *shape)
+    rU, rbc, rv13, rWp = sg.ba_assemble_fused_plain(cam19, d.camp, uvw, x3, delta)
+    bound = sg.AssembleFused(d, uvw)
+    first = bound(cam19, x3, delta)
+    for x, y in zip(first, bound(cam19, x3, delta)):
+        assert torch.equal(x, y)
+    for x, y in zip(first, sg.ba_assemble_fused(cam19, d, uvw, x3, delta)):
+        assert torch.equal(x, y)
+    for groups in (1, 2, 5, 16):
+        U, bc, v13, Wp = bound(cam19, x3, delta, groups=groups)
+        assert _rel(U, rU) < 1e-4 and _rel(v13[:9], rv13[:9]) < 1e-4 and _rel(Wp, rWp) < 1e-4
+        assert _rel(bc, rbc) < 1e-3 and _rel(v13[9:12], rv13[9:12]) < 1e-3
+    with pytest.raises(RuntimeError):
+        bound(cam19, x3, delta, groups=32)
 
 
 @pytest.mark.parametrize("shape", BA_SHAPES)
