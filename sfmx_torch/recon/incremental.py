@@ -1,5 +1,6 @@
-"""Incremental SfM engine: two-view init, resection, triangulation, BA
-(port of ``sfmx.recon.incremental``, primary component).
+"""Incremental SfM engine: two-view init, resection, triangulation, BA,
+secondary components fused through a verified similarity, the checkpointed
+final BA and the joint intrinsics BA (port of ``sfmx.recon.incremental``).
 
 As in the reference: landmark id == track id, the observation table is
 fixed at track-build time and "growing the map" flips alive masks; every
@@ -13,12 +14,8 @@ the TPU compiler and have no meaning for eager PyTorch: the power-of-two
 buckets of the BA table, the candidate batch and the resection batch, the
 per-bucket memo of dense-BA settings, and the rerun of a BA call on the
 planes path when the fused path fails to compile (here a kernel that does
-not build or launch raises).  BA sees exactly the alive observations.
-
-Not ported yet: secondary components and their fusion (``recon/register.py``),
-the joint intrinsics BA (``refine_intrinsics``) and the checkpointed final
-BA (``final_ba_ckpt``); each raises ``NotImplementedError`` where the
-reference would enter it.
+not build or launch raises, and fails the build).  BA sees exactly the
+alive observations, the joint intrinsics BA included.
 """
 from __future__ import annotations
 
@@ -30,7 +27,8 @@ import torch
 
 from ..core import cameras
 from ..mapstore.scene import Scene, new_scene
-from ..solvers import epipolar, lm, p3p, pnp, ransac, triangulate
+from ..solvers import ba_ckpt, epipolar, lm, p3p, pnp, ransac, triangulate
+from .register import RegistrationError, register_points_verified, register_rigid_anchored
 from .tracks import TrackTable
 
 
@@ -51,14 +49,14 @@ class ReconConfig:
     min_track_views: int = 2
     batch_resection: bool = True   # resect ALL eligible cams per round (scalable)
     # Multi-component reconstruction: when coverage stalls below
-    # coverage_target, the reference seeds a secondary component among the
-    # unregistered cameras and fuses it through a verified similarity
-    # (recon/register.py, not ported: see ``reconstruct``)
+    # coverage_target, seed a secondary component among the unregistered
+    # cameras (plus a bridge of covisible registered ones) and fuse it
+    # through a verified similarity (recon/register.py)
     max_components: int = 3
     coverage_target: float = 0.96
     bridge_cams: int = 48
-    refine_intrinsics: tuple | None = None  # e.g. ("f","k1"): joint final BA (not ported)
-    final_ba_ckpt: str | None = None        # checkpointed final BA (not ported)
+    refine_intrinsics: tuple | None = None  # e.g. ("f","k1"): joint final BA
+    final_ba_ckpt: str | None = None        # checkpointed final BA (npz path)
     final_ba_ckpt_every: int = 10
     # fused dense-layout BA (kernels/segsum.py): "auto" = on a CUDA device
     # once the obs table is big enough to amortize the layout build
@@ -211,13 +209,13 @@ def reconstruct(
     *,
     device,
 ) -> tuple[Scene, dict]:
-    """Incremental reconstruction of the primary component on ``device``.
-    Returns (Scene on ``device``, stats)."""
-    if cfg.refine_intrinsics:
-        raise NotImplementedError("refine_intrinsics needs the joint intrinsics BA "
-                                  "(solvers/intrinsics.py, lm.ba_solve_intrinsics), not ported")
-    if cfg.final_ba_ckpt:
-        raise NotImplementedError("final_ba_ckpt needs solvers/ba_ckpt.py, not ported")
+    """Incremental reconstruction on ``device``: the primary component,
+    secondary components while coverage stays under ``coverage_target``,
+    the final BA (checkpointed with ``final_ba_ckpt``) and, with
+    ``refine_intrinsics``, the joint intrinsics BA.  Returns (Scene on
+    ``device``, stats); ``stats["components"]`` has the reference's
+    entries, ``stats["component_loop_s"]`` the host wall of the component
+    loop and of the BA inside it."""
     device = torch.device(device)
     C, K, _ = kp_uv.shape
     T = tt.n_tracks
@@ -227,7 +225,12 @@ def reconstruct(
     V = cfg.max_track_views
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     f_mean = float(np.mean(intr[:, :2]))
-    thresh_n = (cfg.px_thresh / f_mean) ** 2
+    # Self-calibrating builds start from a guessed focal: correct geometry
+    # then reprojects with errors ~ focal error x radial distance, so the
+    # inlier gates stay proportionally lax until the final joint
+    # intrinsics BA tightens the model.
+    gate_scale = 4.0 if cfg.refine_intrinsics else 1.0
+    thresh_n = (gate_scale * cfg.px_thresh / f_mean) ** 2
 
     def dv(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -295,9 +298,13 @@ def reconstruct(
         prs_all = np.stack([au, bu], axis=1)
         pcnt_all = cov[au, bu]
 
-    def make_pair_order(allowed):
-        """Seed-candidate pairs restricted to ``allowed`` cameras."""
+    def make_pair_order(allowed, focus=None):
+        """Seed-candidate pairs restricted to ``allowed`` cameras (and, if
+        given, touching at least one ``focus`` camera: a secondary
+        component's seed aimed into the uncovered region)."""
         keep = allowed[prs_all[:, 0]] & allowed[prs_all[:, 1]]
+        if focus is not None:
+            keep &= focus[prs_all[:, 0]] | focus[prs_all[:, 1]]
         prs, pcnt = prs_all[keep], pcnt_all[keep]
         selp = np.flatnonzero(pcnt >= cfg.min_init_inliers)
         selp = selp[np.argsort(-pcnt[selp])]
@@ -374,7 +381,7 @@ def reconstruct(
                             "overflow_frac": round(ov / max(n_obs, 1), 3)}
         return dict(tp_cap=tp, dense_cg=True, ov_cap=ov)
 
-    def run_ba(iters):
+    def run_ba(iters, ckpt_path=None, huber_scale=1.0, prune=True):
         nonlocal cam_R, cam_t, X
         t_ba = _time.time()
         sel = np.flatnonzero(obs_alive_mask())
@@ -383,11 +390,18 @@ def reconstruct(
         fixed = ~registered
         fixed[np.flatnonzero(registered)[0]] = True
         sel_d = dv(sel)
-        dkw = dense_ba_kwargs(obs_pt[sel])
-        R2, t2, X2, costs = lm.ba_solve(
-            intr_d, cam_k_d, dv(cam_R), dv(cam_t), dv(X), obs_cam_d[sel_d], obs_pt_d[sel_d],
-            obs_uv_d[sel_d], torch.ones(len(sel), dtype=torch.float32, device=device),
-            dv(fixed), iters=iters, cg_iters=cfg.cg_iters, huber_px=cfg.huber_px, **dkw)
+        ba_args = (intr_d, cam_k_d, dv(cam_R), dv(cam_t), dv(X), obs_cam_d[sel_d],
+                   obs_pt_d[sel_d], obs_uv_d[sel_d],
+                   torch.ones(len(sel), dtype=torch.float32, device=device), dv(fixed))
+        kw = dict(cg_iters=cfg.cg_iters, huber_px=cfg.huber_px * huber_scale,
+                  **dense_ba_kwargs(obs_pt[sel]))
+        if ckpt_path is not None:
+            # the checkpointed final solve: chunks that resume after a crash
+            R2, t2, X2, costs = ba_ckpt.ba_solve_checkpointed(
+                *ba_args, total_iters=iters, ckpt_every=cfg.final_ba_ckpt_every,
+                ckpt_path=ckpt_path, **kw)[:4]
+        else:
+            R2, t2, X2, costs = lm.ba_solve(*ba_args, iters=iters, **kw)
         cam_R, cam_t, X = R2.cpu().numpy(), t2.cpu().numpy(), X2.cpu().numpy()
         stats["ba_costs"].append([float(costs[0]), float(costs[-1])])
         stats["ba_calls"][stats["ba_path"]["mode"]] += 1
@@ -400,10 +414,15 @@ def reconstruct(
         stats["ba_total_iters"] = stats.get("ba_total_iters", 0) + iters
         stats["ba_iters_per_s"] = round(
             stats["ba_total_iters"] / max(stats["ba_total_s"], 1e-9), 2)
-        # prune observations with large error; kill starved points
-        obs_pruned[:] |= (err2_all() > thresh_n * 4.0) & obs_alive_mask()
-        obs_count = np.bincount(obs_pt[obs_alive_mask()], minlength=T)
-        X_alive[obs_count < cfg.min_track_views] = False
+        # prune observations with large error; kill starved points.
+        # prune=False is the fusion BA's anneal: right after a sim3 fuse the
+        # cross-component observations are exactly the large-residual ones,
+        # and pruning them would cut the hinge that constrains the fused
+        # geometry
+        if prune:
+            obs_pruned[:] |= (err2_all() > thresh_n * 4.0) & obs_alive_mask()
+            obs_count = np.bincount(obs_pt[obs_alive_mask()], minlength=T)
+            X_alive[obs_count < cfg.min_track_views] = False
 
     def try_seed(pair_order):
         """Score all candidate pairs, trial-BA the best few, keep the best-
@@ -580,22 +599,180 @@ def reconstruct(
     incremental_loop(all_cams)
     stats["components"].append({"component": 0, "registered": int(registered.sum())})
 
-    # ---- secondary components ----------------------------------------------
-    # Where the reference seeds a secondary component among the unregistered
-    # cameras and fuses it through the verified similarity of
-    # recon/register.py, the port stops: a partial map is not returned as if
-    # it were the reference's answer.  max_components=1 skips this, as there.
+    # ---- secondary components: multi-seed coverage recovery ----------------
+    # A stalled frontier is recovered by seeding a NEW component among the
+    # unregistered cameras + a bridge of covisible registered ones, growing
+    # it with the same machinery, and fusing it into the primary through
+    # the VERIFIED shared-track / shared-camera similarity.  A registration
+    # failure drops the component (diagnostics recorded), never a blind
+    # stitch.
+    t_comp, ba_s0 = _time.time(), phase_s["ba"]
     has_tracks = np.array([len(cam_tracks[c]) > 0 for c in range(C)])
     n_possible = max(int(has_tracks.sum()), 1)
-    n_unreg = int((has_tracks & ~registered).sum())
-    if (cfg.max_components > 1 and registered.sum() < cfg.coverage_target * n_possible
-            and n_unreg >= max(4, cfg.min_init_inliers // 4)):
-        raise NotImplementedError(
-            f"{int(registered.sum())}/{n_possible} cameras registered, under coverage_target="
-            f"{cfg.coverage_target}: a secondary component needs recon/register.py, which is "
-            "not ported; pass max_components=1 to keep the primary component")
+    comp = 1
+    # a rolled-back fusion retries ONCE with a doubled bridge: the failure
+    # mode is a too-thin hinge, and more bridge cameras give the secondary
+    # more shared structure to anchor and more cross-observations
+    fuse_attempts = 0
+    bridge_n = cfg.bridge_cams
 
-    run_ba(cfg.final_ba_iters)
+    def snapshot():
+        """Every piece of host state the component loop mutates (run_ba
+        rebinds cam_R, cam_t and X; the rest change in place)."""
+        return (registered.copy(), failed.copy(), points_at_failure.copy(), cam_R.copy(),
+                cam_t.copy(), X.copy(), X_alive.copy(), obs_pruned.copy())
+
+    def restore(snap):
+        (registered[:], failed[:], points_at_failure[:], cam_R[:], cam_t[:], X[:],
+         X_alive[:], obs_pruned[:]) = snap
+
+    def component_failed(entry):
+        nonlocal fuse_attempts, bridge_n
+        stats["components"].append(entry)
+        fuse_attempts += 1
+        bridge_n *= 2
+        return fuse_attempts >= 2
+
+    while comp < cfg.max_components and registered.sum() < cfg.coverage_target * n_possible:
+        U = has_tracks & ~registered
+        if U.sum() < max(4, cfg.min_init_inliers // 4):
+            break
+        snap = snapshot()
+        # bridge: the registered cameras with the strongest direct matches
+        # into the uncovered set (shared structure to register against)
+        bscore = np.zeros(C, np.int64)
+        in_u_a, in_u_b = U[prs_all[:, 0]], U[prs_all[:, 1]]
+        reg_a, reg_b = registered[prs_all[:, 0]], registered[prs_all[:, 1]]
+        np.add.at(bscore, prs_all[in_u_a & reg_b, 1], pcnt_all[in_u_a & reg_b])
+        np.add.at(bscore, prs_all[in_u_b & reg_a, 0], pcnt_all[in_u_b & reg_a])
+        bridge = np.zeros(C, bool)
+        top_b = np.argsort(-bscore)[:bridge_n]
+        bridge[top_b] = bscore[top_b] > 0
+        allowed2 = U | bridge
+        # fresh state for the secondary component
+        registered[:] = False
+        failed[:] = False
+        points_at_failure[:] = -1.0
+        X_alive[:] = False
+        obs_pruned[:] = False
+        ok2, diag2 = try_seed(make_pair_order(allowed2, focus=U))
+        if ok2:
+            incremental_loop(allowed2)
+        reg_sec, camR_sec, camt_sec, X_sec, Xalive_sec = (
+            registered.copy(), cam_R.copy(), cam_t.copy(), X.copy(), X_alive.copy())
+        restore(snap)  # the primary again
+        new_cams = reg_sec & ~registered
+        if not ok2 or int(new_cams.sum()) == 0:
+            if component_failed({"component": comp,
+                                 "fail": diag2 or "secondary registered no new cameras"}):
+                break
+            continue
+        shared_t = X_alive & Xalive_sec
+        shared_c = registered & reg_sec
+        Pa_l, Pb_l = [X[shared_t]], [X_sec[shared_t]]
+        if shared_c.any():
+            Pa_l.append(-np.einsum("cji,cj->ci", cam_R[shared_c], cam_t[shared_c]))
+            Pb_l.append(-np.einsum("cji,cj->ci", camR_sec[shared_c], camt_sec[shared_c]))
+        try:
+            if int(shared_c.sum()) >= 3:
+                # rotation anchored on shared camera orientations: the shared
+                # structure concentrates at the frontier, where point-only
+                # Umeyama is rotation/scale-degenerate; the post-fusion BA
+                # check below is the authoritative accept/rollback, so the
+                # split-half gate is off
+                reg = register_rigid_anchored(
+                    cam_R[shared_c], camR_sec[shared_c], np.concatenate(Pa_l),
+                    np.concatenate(Pb_l), min_point_inliers=max(8, cfg.min_init_inliers // 3),
+                    agree_scale=None, agree_trans_frac=None)
+            else:
+                reg = register_points_verified(
+                    np.concatenate(Pa_l), np.concatenate(Pb_l), device=device, noise=gen,
+                    min_inliers=max(8, cfg.min_init_inliers // 3))
+        except RegistrationError as e:
+            if component_failed({"component": comp, "new_cams": int(new_cams.sum()),
+                                 "fail": f"sim3 verification: {e}"}):
+                break
+            continue
+
+        pre_med_px = _med_reproj_px()
+        pre_snap = snapshot()
+        # fuse: secondary poses/points into the primary frame (B->A world
+        # similarity: R' = Rc R^T, t' = s tc - R' t, X' = s R X + t)
+        X2 = reg.s * (X_sec @ reg.R.T) + reg.t
+        R2 = np.einsum("cij,kj->cik", camR_sec, reg.R)
+        t2 = reg.s * camt_sec - np.einsum("cij,j->ci", R2, reg.t)
+        cam_R[new_cams] = R2[new_cams]
+        cam_t[new_cams] = t2[new_cams]
+        registered[new_cams] = True
+        new_pts = Xalive_sec & ~X_alive
+        X[new_pts] = X2[new_pts]
+        X_alive[new_pts] = True
+        # a shared track whose two points the similarity does not map onto
+        # each other (a RANSAC outlier) is killed, and comes back only if
+        # it re-triangulates within px_thresh in every registered view
+        # under the fused poses.  One false match joins a point of each
+        # component into one track; kept at the primary's point, the other
+        # component's views see it with hundreds of px of error, and its
+        # Huber tail alone bent a noise-free 96-camera fusion to an ATE of
+        # 0.9 in a world 12 across (F8 in ROADMAP.md; the reference keeps
+        # such tracks)
+        X_alive[np.flatnonzero(shared_t)[~reg.inliers[:int(shared_t.sum())]]] = False
+        failed[:] = False
+        points_at_failure[:] = -1.0
+        run_triangulation()
+        # Annealed-Huber fusion BA, pruning deferred: a slightly-off sim3
+        # puts the cross-component residuals past huber_px, where Huber's
+        # linear tail barely pulls; widening it first makes the hinge
+        # quadratic so the long-wavelength correction happens.  25
+        # iterations a stage: a degree of hinge error bends the far end.
+        fuse_iters = max(cfg.ba_iters, 25)
+        run_ba(fuse_iters, huber_scale=8.0, prune=False)
+        run_ba(fuse_iters, huber_scale=2.0, prune=False)
+        run_ba(fuse_iters, prune=False)
+        # the authoritative fusion verification: joint BA either absorbs the
+        # disagreement (reprojection returns to the pre-fusion level) or
+        # cannot (the fused frontier is wrong): roll back then.  The floor
+        # is 0.25 * px_thresh = 1 px.
+        post_med_px = _med_reproj_px()
+        if post_med_px > max(1.5 * pre_med_px, 0.25 * cfg.px_thresh):
+            restore(pre_snap)
+            if component_failed({"component": comp, "new_cams": int(new_cams.sum()),
+                                 "fail": ("post-fusion BA verification: median reprojection "
+                                          f"{pre_med_px:.2f} -> {post_med_px:.2f} px; "
+                                          "rolled back")}):
+                break
+            continue
+        stats["components"].append(
+            {"component": comp, "new_cams": int(new_cams.sum()),
+             "new_points": int(new_pts.sum()), "reg_inliers": int(reg.inliers.sum()),
+             "shared_tracks": int(shared_t.sum()), "shared_cams": int(shared_c.sum()),
+             "med_px": [round(pre_med_px, 3), round(post_med_px, 3)]})
+        # fused structure may unlock previously stalled cameras everywhere
+        incremental_loop(all_cams)
+        comp += 1
+        fuse_attempts = 0
+        bridge_n = cfg.bridge_cams
+    stats["component_loop_s"] = {"wall": round(_time.time() - t_comp, 3),
+                                 "ba": round(phase_s["ba"] - ba_s0, 3)}
+
+    run_ba(cfg.final_ba_iters, ckpt_path=cfg.final_ba_ckpt)
+
+    if cfg.refine_intrinsics:
+        # final joint pose+point+intrinsics LM (self-calibration): focal and
+        # distortion errors trade off against depth and are invisible to
+        # alternating refinement
+        sel_d = dv(np.flatnonzero(obs_alive_mask()))
+        fixedm = ~registered
+        fixedm[np.flatnonzero(registered)[0]] = True
+        R2, t2, X2, intr2, costs = lm.ba_solve_intrinsics(
+            intr_d, cam_k_d, dv(cam_R), dv(cam_t), dv(X), obs_cam_d[sel_d], obs_pt_d[sel_d],
+            obs_uv_d[sel_d], torch.ones(len(sel_d), dtype=torch.float32, device=device),
+            dv(fixedm), params=tuple(cfg.refine_intrinsics), iters=cfg.final_ba_iters,
+            cg_iters=cfg.cg_iters, huber_px=cfg.huber_px)
+        cam_R, cam_t, X = R2.cpu().numpy(), t2.cpu().numpy(), X2.cpu().numpy()
+        intr = intr2.cpu().numpy()
+        stats["refined_intrinsics"] = intr.tolist()
+        stats["intrinsics_ba_costs"] = [float(costs[0]), float(costs[-1])]
 
     scene = new_scene(C, T, O, intr, cam_k=cam_k, device=device)
     scene = dataclasses.replace(

@@ -7,18 +7,23 @@ and the loop is a Python loop; accept/reject and the damping update stay
 ``torch.where`` on device scalars, so a solve never waits for the device.
 
 Gauge: the cameras of ``fixed_cam_mask`` are held fixed; the scale gauge is
-controlled by LM damping.  The joint intrinsics solve
-(``ba_solve_intrinsics``) is not ported.
+controlled by LM damping.
+
+``ba_solve_intrinsics`` is the joint pose, point and shared-intrinsics LM
+(self-calibration) on the block pipeline of ``schur``; plain torch, as the
+reference has no kernel there.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.func import jacrev, vmap
 
 from ..core import cameras, se3
 from ..kernels import segsum
 from . import schur
+from .intrinsics import _delta_to_intr
 
 
 class BAState(NamedTuple):
@@ -188,3 +193,84 @@ def reprojection_rmse(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid):
     r = cameras.reprojection_residual(intr[k_idx.long()[ci]], R[ci], t[ci], X[pt_id.long()], uv)
     n = torch.clamp(torch.sum(w_valid), min=1.0)
     return torch.sqrt(torch.sum(torch.sum(r * r, dim=-1) * w_valid) / n)
+
+
+# ---------------------------------------------------------------------------
+# Joint pose + point + intrinsics LM
+# ---------------------------------------------------------------------------
+
+
+def _jacobians_k(intr, k_idx, R, t, X, cam_id, pt_id, uv, params, f_ref):
+    """Residual + Jacobians wrt (camera 6, point 3, intrinsics n_p):
+    r (O,2), Jc (O,2,6), Jp (O,2,3), Jk (O,2,n_p), by ``torch.func.jacrev``
+    through ``se3.perturb``, ``_delta_to_intr`` and ``reprojection_residual``
+    (see ``intrinsics``: why not forward mode).
+
+    Normalization uses the FIXED f_ref so that the focal derivative is not
+    partly absorbed by the per-observation weight."""
+    n_p = len(params)
+
+    def res(p, kc, Rc, tc, Xp, uv_o):
+        R2, t2 = se3.perturb(Rc, tc, p[:6])
+        k2 = _delta_to_intr(kc, p[9:9 + n_p], params)
+        return cameras.reprojection_residual(k2, R2, t2, Xp + p[6:9], uv_o) / f_ref
+
+    ci = cam_id.long()
+    args = (intr[k_idx.long()[ci]], R[ci], t[ci], X[pt_id.long()], uv)
+    zero = torch.zeros(9 + n_p, dtype=X.dtype, device=X.device)
+    J = vmap(jacrev(res), in_dims=(None, 0, 0, 0, 0, 0))(zero, *args)     # (O,2,9+n_p)
+    return res(zero, *args), J[..., :6], J[..., 6:9], J[..., 9:]
+
+
+def ba_solve_intrinsics(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *,
+                        params: tuple = ("f", "k1"), iters: int = 20, cg_iters: int = 30,
+                        huber_px: float = 4.0, init_lambda: float = 1e-4):
+    """LM over poses, points AND shared intrinsics (the joint Schur system
+    of ``schur.NormalBlocksK``).  Arguments as ``ba_solve``'s; ``params``
+    names the refined intrinsics (``intrinsics.PARAM_SPEC``).
+
+    Returns (R, t, X, intr, costs[iters+1]); as in the reference, costs[i+1]
+    is iteration i's best trial cost, accepted or not.
+    """
+    n_cams, n_pts, n_groups = R.shape[0], X.shape[0], intr.shape[0]
+    dev = X.device
+    f_ref = float(torch.mean(0.5 * (intr[:, 0] + intr[:, 1])))
+    huber_n = huber_px / f_ref
+    perm = torch.argsort(pt_id, stable=True)
+    cam_id, pt_id, uv, w_valid = cam_id[perm], pt_id[perm], uv[perm], w_valid[perm]
+    ci, pi = cam_id.long(), pt_id.long()
+    group = k_idx[ci]
+
+    def eval_cost(intr_, R_, t_, X_):
+        r = cameras.reprojection_residual(intr_[k_idx.long()[ci]], R_[ci], t_[ci], X_[pi],
+                                          uv) / f_ref
+        return robust_cost(torch.sum(r * r, dim=-1), w_valid, huber_n)
+
+    cost = eval_cost(intr, R, t, X)
+    lam = torch.as_tensor(init_lambda, dtype=X.dtype, device=dev)
+    costs = [cost]
+    for _ in range(iters):
+        r, Jc, Jp, Jk = _jacobians_k(intr, k_idx, R, t, X, cam_id, pt_id, uv, params, f_ref)
+        w = w_valid * huber_weight(torch.sum(r * r, dim=-1), huber_n)
+        nbk = schur.assemble_with_intrinsics(Jc, Jp, Jk, r, w, cam_id, pt_id, group, k_idx,
+                                             n_cams, n_pts, n_groups)
+        sk = schur.reduce_system_k(nbk, lam)
+        dx_c, dx_k = schur.pcg_k(sk, iters=cg_iters, fixed_cam_mask=fixed_cam_mask)
+        dx_p = schur.solve_points_k(sk, dx_c, dx_k)
+
+        cands = []
+        for a in _ALPHAS:
+            R2, t2 = se3.perturb(R, t, a * dx_c)
+            cands.append((_delta_to_intr(intr, a * dx_k, params), R2, t2, X + a * dx_p))
+        tc = torch.stack([eval_cost(*c) for c in cands])
+        best = torch.argmin(tc)
+        pick = lambda i: torch.stack([c[i] for c in cands])[best[None]][0]
+        new_cost = tc[best[None]][0]
+        accept = new_cost < cost
+        full = accept & (best == 0)
+        lam = torch.clamp(torch.where(full, lam * 0.33, torch.where(accept, lam, lam * 4.0)),
+                          1e-9, 1e6)
+        intr, R, t, X = (torch.where(accept, pick(i), x) for i, x in enumerate((intr, R, t, X)))
+        cost = torch.where(accept, new_cost, cost)
+        costs.append(new_cost)
+    return R, t, X, intr, torch.stack(costs)

@@ -7,17 +7,20 @@ point ids, and the Schur complement S = U - W V^-1 W^T is applied
 matrix-free inside a block-Jacobi PCG.  Two pipelines are ported:
 
 - PLANES: per-observation (O,18) W blocks, ``index_add_`` for the segment
-  sums.  The port's one scatter-based path: it carries small problems, CPU
-  tensors, and the overflow observations of the dense path.
+  sums: small problems, CPU tensors, the merge's joint BA, the overflow
+  observations of the dense path, and the pose/point part of the joint
+  pose, point and intrinsics system (``NormalBlocksK``, ``pcg_k``) that
+  ``lm.ba_solve_intrinsics`` solves; plain torch, as the reference has no
+  kernel there.
 - DENSE: the point-major slot layout of ``kernels/segsum`` with the fused
   kernels K7 (assembly) and K6 (the cross term of every matvec, the Schur
   rhs and the back-substitution).  Observations of tracks longer than the
   layout (overflow) ride the planes ops and are chained exactly into the
   kernel through its point-side bias and its camera-side output.
 
-The reference's padded-row tables (``SegmentRows``), its track-blocked CG
-and its ``jacfwd`` block pipeline answer TPU scatter costs and are not
-ported; its own tests hold the planes pipeline equal to them.
+The reference's (O,2,6)/(O,6,3) block pipeline, its padded-row tables
+(``SegmentRows``) and its track-blocked CG are not ported; its own tests
+hold the planes pipeline equal to them.
 """
 from __future__ import annotations
 
@@ -52,9 +55,13 @@ def _inv3_components(a, b, c, d, e, f, g, h, i):
 
 def _inv_spd(M: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Batched SPD inverse with a Tikhonov floor: closed-form adjugate for
-    3x3 blocks, 2x2-of-3x3 block Schur complement for 6x6 blocks."""
-    if M.shape[-1] == 6:
+    3x3 blocks, 2x2-of-3x3 block Schur complement for 6x6 blocks, a batched
+    inverse for other sizes (the intrinsics blocks)."""
+    k = M.shape[-1]
+    if k == 6:
         return _inv_spd6(M, eps)
+    if k != 3:
+        return torch.linalg.inv(M + eps * torch.eye(k, dtype=M.dtype, device=M.device))
     inv = _inv3_components(M[..., 0, 0] + eps, M[..., 0, 1], M[..., 0, 2],
                            M[..., 1, 0], M[..., 1, 1] + eps, M[..., 1, 2],
                            M[..., 2, 0], M[..., 2, 1], M[..., 2, 2] + eps)
@@ -76,9 +83,19 @@ def _inv_spd6(M: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """(O,w) rows summed by segment id -> (n,w)."""
-    return torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(
+    """(O,...) rows summed by segment id -> (n,...)."""
+    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(
         0, ids.long(), x)
+
+
+def _bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(N,a,b) blocks @ (N,b) -> (N,a)."""
+    return (M @ v[..., None])[..., 0]
+
+
+def _bmtv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(N,a,b) blocks^T @ (N,a) -> (N,b)."""
+    return (v[..., None, :] @ M)[..., 0, :]
 
 
 # ---------------------------------------------------------------------------
@@ -299,3 +316,127 @@ def pcg_dense(sysd: SchurSystemD, iters: int = 30, fixed_cam_mask=None):
         return (sysd.Ud @ x[:, :, None])[:, :, 0] - z6.T
 
     return _pcg(matvec, sysd.Ud, sysd.b_red, iters, fixed_cam_mask)
+
+
+# ---------------------------------------------------------------------------
+# Extended system: shared-intrinsics blocks in the reduced camera system
+# ---------------------------------------------------------------------------
+
+
+class NormalBlocksK(NamedTuple):
+    """Normal blocks with per-group intrinsics parameters (n_p each).
+
+    Each camera couples to exactly one intrinsics group (k_idx[cam]), so the
+    pose-intrinsics coupling is a per-camera (6,n_p) block and everything
+    stays segment-sum shaped.
+    """
+
+    base: NormalBlocksP
+    Ukk: torch.Tensor       # (I,n_p,n_p)
+    Uck: torch.Tensor       # (C,6,n_p) pose-intrinsics coupling (summed per camera)
+    Wk: torch.Tensor        # (O,n_p,3) intrinsics-point coupling per observation
+    b_k: torch.Tensor       # (I,n_p)
+    group: torch.Tensor     # (O,) intrinsics group of each observation
+    cam_group: torch.Tensor  # (C,) intrinsics group of each camera
+
+
+def assemble_with_intrinsics(Jc, Jp, Jk, r, w, cam_id, pt_id, group, cam_group,
+                             n_cams: int, n_pts: int, n_groups: int) -> NormalBlocksK:
+    """``assemble_planes`` of Jc (O,2,6), Jp (O,2,3) plus the intrinsics
+    blocks of Jk (O,2,n_p)."""
+    O = Jc.shape[0]
+    base = assemble_planes(Jc.reshape(O, 12), Jp.reshape(O, 6), r, w, cam_id, pt_id,
+                           n_cams, n_pts)
+    ws = w[:, None, None]
+    Jkt = (Jk * ws).transpose(1, 2)                       # (O,n_p,2)
+    Ukk_o = Jkt @ Jk
+    Uck_o = (Jc * ws).transpose(1, 2) @ Jk                # (O,6,n_p)
+    Wk_o = Jkt @ Jp                                       # (O,n_p,3)
+    bk_o = -(Jkt @ r[..., None])[..., 0]
+    return NormalBlocksK(base, _segment_sum(Ukk_o, group, n_groups),
+                         _segment_sum(Uck_o, cam_id, n_cams), Wk_o,
+                         _segment_sum(bk_o, group, n_groups), group, cam_group)
+
+
+class SchurSystemK(NamedTuple):
+    sys: SchurSystemP        # pose/point part (damped, reduced)
+    Ukk_d: torch.Tensor      # (I,n_p,n_p) damped
+    Uck: torch.Tensor        # (C,6,n_p)
+    Wk: torch.Tensor         # (O,n_p,3)
+    b_red_k: torch.Tensor    # (I,n_p)
+    group: torch.Tensor
+    cam_group: torch.Tensor
+
+    @property
+    def n_groups(self) -> int:
+        return self.Ukk_d.shape[0]
+
+
+def reduce_system_k(nbk: NormalBlocksK, lam) -> SchurSystemK:
+    sys = reduce_system_planes(nbk.base, lam)
+    nb = nbk.base
+    # b_red_k = b_k - Wk V^-1 b_p
+    contrib = _bmv(nbk.Wk, _mv3_planes(sys.Vinv9, nb.b_p)[nb.pt_id.long()])
+    b_red_k = nbk.b_k - _segment_sum(contrib, nbk.group, nbk.Ukk.shape[0])
+    return SchurSystemK(sys, _damp(nbk.Ukk, lam), nbk.Uck, nbk.Wk, b_red_k, nbk.group,
+                        nbk.cam_group)
+
+
+def _point_rhs_k(sk: SchurSystemK, x_c, x_k) -> torch.Tensor:
+    """Per point: sum over its observations of Wc^T x_cam + Wk^T x_group."""
+    nb = sk.sys.blocks
+    Wtx = _W_t_x(nb.W18, x_c[nb.cam_id.long()]) + _bmtv(sk.Wk, x_k[sk.group.long()])
+    return _segment_sum(Wtx, nb.pt_id, sk.sys.Vinv9.shape[0])
+
+
+def schur_matvec_k(sk: SchurSystemK, x_c: torch.Tensor, x_k: torch.Tensor):
+    """Matvec of the reduced system over (poses, intrinsics groups)."""
+    sys = sk.sys
+    nb = sys.blocks
+    cg = sk.cam_group.long()
+    # direct terms
+    y_c = _bmv(sys.Ud, x_c) + _bmv(sk.Uck, x_k[cg])
+    y_k = _bmv(sk.Ukk_d, x_k) + _segment_sum(_bmtv(sk.Uck, x_c), cg, sk.n_groups)
+    # point-mediated terms: z_p = V^-1 (Wc^T x_c + Wk^T x_k) per point
+    Vz = _mv3_planes(sys.Vinv9, _point_rhs_k(sk, x_c, x_k))[nb.pt_id.long()]
+    y_c = y_c - _segment_sum(_W_x(nb.W18, Vz), nb.cam_id, x_c.shape[0])
+    y_k = y_k - _segment_sum(_bmv(sk.Wk, Vz), sk.group, sk.n_groups)
+    return y_c, y_k
+
+
+def solve_points_k(sk: SchurSystemK, dx_c: torch.Tensor, dx_k: torch.Tensor) -> torch.Tensor:
+    """dx_p = V^-1 (b_p - Wc^T dx_c - Wk^T dx_k)."""
+    return _mv3_planes(sk.sys.Vinv9, sk.sys.blocks.b_p - _point_rhs_k(sk, dx_c, dx_k))
+
+
+def pcg_k(sk: SchurSystemK, iters: int = 30, fixed_cam_mask=None):
+    """Block-Jacobi PCG on the (poses + intrinsics) reduced system; a fixed
+    iteration count.  Returns (dx_c (C,6), dx_k (I,n_p))."""
+    Minv_c = _inv_spd(sk.sys.Ud)
+    Minv_k = _inv_spd(sk.Ukk_d)
+
+    def proj(xc, xk):
+        if fixed_cam_mask is None:
+            return xc, xk
+        return torch.where(fixed_cam_mask[:, None], torch.zeros_like(xc), xc), xk
+
+    def prec(rc, rk):
+        return _bmv(Minv_c, rc), _bmv(Minv_k, rk)
+
+    def dot(a, b):
+        return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
+
+    r = proj(sk.sys.b_red, sk.b_red_k)
+    x = (torch.zeros_like(r[0]), torch.zeros_like(r[1]))
+    z = proj(*prec(*r))
+    p = z
+    for _ in range(iters):
+        Sp = proj(*schur_matvec_k(sk, *p))
+        rz = dot(r, z)
+        alpha = rz / torch.clamp(dot(p, Sp), min=1e-20)
+        x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
+        r = (r[0] - alpha * Sp[0], r[1] - alpha * Sp[1])
+        z = proj(*prec(*r))
+        beta = dot(r, z) / torch.clamp(rz, min=1e-20)
+        p = (z[0] + beta * p[0], z[1] + beta * p[1])
+    return x

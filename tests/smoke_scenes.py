@@ -14,7 +14,9 @@
 - distractor rooms (``combine_scenes``): scenes of rooms rendered with other
   textures, translated elsewhere in the world frame, joined into one map
   like the rooms of one building;
-- the synthetic map and query of ``bench.py``'s gather-path tripwire.
+- the synthetic map and query of ``bench.py``'s gather-path tripwire;
+- the reference's stalling two-cluster scene at a build's size
+  (``two_cluster_world``), for secondary components.
 """
 from __future__ import annotations
 
@@ -248,3 +250,65 @@ def ba_problem(C: int, P: int, O: int, seed: int = 0, *, window: int = 6,
     return dict(intr=intr, k_idx=np.zeros(C, np.int32), R=R, t=t, X=X, cam_id=cam_id,
                 pt_id=pt_id, uv=uv, w_valid=np.ones(len(pt_id), np.float32),
                 fixed_cam_mask=fixed)
+
+
+def two_cluster_world(n_per_arc: int = 48, n_cluster: int = 3000, n_shared: int = 40,
+                      K: int = 1024, seed: int = 0, noise: float = 0.03):
+    """The reference's stalling scene (``tests/test_multicomponent.py``'s
+    ``_two_cluster_world`` and ``_features``) at a build's size: two point
+    clouds of ``n_cluster`` points 8 units apart, each seen by an arc of
+    ``n_per_arc`` cameras (640x480, f=400, +-35 deg), joined only by a
+    boundary cloud of ``n_shared`` points that both arcs see.  Each camera
+    keeps K of its visible points as keypoints at their exact pixel
+    positions, as the reference's do, with 128-float descriptors (a random
+    unit vector per point plus ``noise``, renormalized).
+
+    The boundary cloud is big enough for a verified similarity between two
+    components (>= 8 shared tracks) and too small for a camera of one arc
+    to resect against the other arc's map (< 25 keypoints on it).  Returns
+    (uv (C,K,2), desc (C,K,128), mask (C,K), intr (7,), centers (C,3),
+    feat_pt (C,K) point id or -1)."""
+    from examples import room
+
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(-2.0, 2.0, (n_cluster, 3))
+    B = rng.uniform(-2.0, 2.0, (n_cluster, 3)) + np.array([8.0, 0.0, 0.0])
+    S = rng.uniform(-1.2, 1.2, (n_shared, 3)) + np.array([4.0, 0.0, 0.0])
+    pts = np.concatenate([A, S, B])
+    nA, nS = len(A), len(S)
+    width, height, f = 640, 480, 400.0
+    intr = np.array([f, f, width / 2.0, height / 2.0, 0, 0, 0], np.float32)
+    Rs, ts, allowed = [], [], []
+    angles = np.deg2rad(np.linspace(-35.0, 35.0, n_per_arc))
+    for center, ids in ((np.zeros(3), np.arange(nA + nS)),
+                        (np.array([8.0, 0.0, 0.0]), np.arange(nA, len(pts)))):
+        for a in angles:
+            R, t = room.look_at(center + 6.0 * np.array(
+                [np.sin(a), 0.4 * np.sin(2 * a) + 0.15, -np.cos(a)]), center)
+            Rs.append(R)
+            ts.append(t)
+            allowed.append(ids)
+    Rs, ts = np.stack(Rs), np.stack(ts)
+    C = len(Rs)
+    cam = np.einsum("cij,pj->cpi", Rs, pts) + ts[:, None, :]
+    z = cam[..., 2]
+    px = cam[..., :2] / np.maximum(z[..., None], 1e-9) * f + np.array([width, height]) / 2.0
+    in_frustum = ((z > 0.5) & (z < 12.0) & (px[..., 0] >= 0) & (px[..., 0] < width)
+                  & (px[..., 1] >= 0) & (px[..., 1] < height))
+    base = rng.normal(size=(len(pts), 128)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    uv = np.zeros((C, K, 2), np.float32)
+    desc = np.zeros((C, K, 128), np.float32)
+    mask = np.zeros((C, K), bool)
+    feat_pt = np.full((C, K), -1, np.int64)
+    for c in range(C):
+        ids = allowed[c][in_frustum[c, allowed[c]]]
+        ids = ids[rng.permutation(len(ids))[:K]]
+        n = len(ids)
+        uv[c, :n] = px[c, ids]
+        d = base[ids] + noise * rng.normal(size=(n, 128)).astype(np.float32)
+        desc[c, :n] = d / np.linalg.norm(d, axis=1, keepdims=True)
+        mask[c, :n] = True
+        feat_pt[c, :n] = ids
+    centers = np.einsum("cji,cj->ci", Rs, -ts)
+    return uv, desc, mask, intr, centers, feat_pt

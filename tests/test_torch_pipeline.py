@@ -331,8 +331,7 @@ def built_map(tmp_path_factory):
     """``build_map`` twice over precomputed features with a stage cache."""
     rng = np.random.default_rng(0)
     sc, jfeats, _, intr, cam_k = _repetitive_case(rng)
-    cfg = load_config(None, ["features.max_keypoints=160", "recon.ransac_hypotheses=128",
-                             "recon.max_components=1"])
+    cfg = load_config(None, ["features.max_keypoints=160", "recon.ransac_hypotheses=128"])
     workdir = tmp_path_factory.mktemp("build")
     run = lambda: tp.build_map(None, intr, cam_k, cfg, "cpu", workdir, feats=_port_feats(jfeats),
                                stage_seed="repetitive",
@@ -371,8 +370,7 @@ def test_build_map_matches_reference(built_map):
     from sfmx_torch.solvers import umeyama as tum
 
     sc, jfeats, intr, cam_k, ((scene, feats, tt, stats), _), _ = built_map
-    jcfg = jload_config(None, ["features.max_keypoints=160", "recon.ransac_hypotheses=128",
-                               "recon.max_components=1"])
+    jcfg = jload_config(None, ["features.max_keypoints=160", "recon.ransac_hypotheses=128"])
     jtt = jtracks.TrackTable(tt.obs_cam, tt.obs_feat, tt.obs_track, tt.n_tracks)
     jscene, jstats = jreconstruct(np.asarray(jfeats.kp.uv), np.asarray(jfeats.kp.mask), jtt, intr,
                                   cam_k, jcfg.recon)

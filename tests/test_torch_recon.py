@@ -223,21 +223,31 @@ def test_reconstruct_sequential_and_callbacks(case):
     assert seen == sorted(seen) and seen[-1] == len(uv) and len(seen) >= 6
 
 
-def test_reconstruct_errors(case):
+def test_reconstruct_errors(case, tmp_path):
+    """What used to raise now runs as the reference does: no tracks is a
+    ReconError; ``final_ba_ckpt`` checkpoints the final BA; ``refine_intrinsics``
+    refines the focal; two groups of 8 cameras with no pair across them
+    record a failed secondary component and keep the 8 primary cameras, in
+    both packages."""
     sc, uv, mask, _, _, tt, intr, _ = case
     cam_k = np.zeros(len(uv), np.int32)
     empty = TrackTable(np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np.int32), 0)
     with pytest.raises(tinc.ReconError, match="no tracks"):
         tinc.reconstruct(uv, mask, empty, intr, cam_k, device="cpu")
-    with pytest.raises(NotImplementedError, match="intrinsics"):
-        tinc.reconstruct(uv, mask, tt, intr, cam_k,
-                         tinc.ReconConfig(refine_intrinsics=("f",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ba_ckpt"):
-        tinc.reconstruct(uv, mask, tt, intr, cam_k,
-                         tinc.ReconConfig(final_ba_ckpt="/nonexistent/ckpt"), device="cpu")
+    ckpt = tmp_path / "final_ba.npz"
+    cfg = tinc.ReconConfig(ba_every=3, ransac_hypotheses=128, final_ba_ckpt=str(ckpt),
+                           refine_intrinsics=("f",))
+    scene, stats = tinc.reconstruct(uv, mask, tt, intr, cam_k, cfg, device="cpu")
+    _gates(case, scene, stats)
+    with np.load(ckpt) as z:
+        assert int(z["it"]) == cfg.final_ba_iters and int(z["version"]) == 1
+    f_est = float(scene.intr[0, 0])
+    assert abs(f_est / sc.intrinsics[0] - 1.0) < 0.03 and stats["refined_intrinsics"][0][0] == f_est
     # two groups of 8 cameras with no pair across them: the primary component
-    # strands 8 >= max(4, 30 // 4) cameras under coverage_target, where the
-    # reference would seed a secondary component
+    # strands 8 >= max(4, 30 // 4) cameras under coverage_target, the
+    # secondary seeds among them but shares no track or camera with the
+    # primary, so its fusion fails verification (twice: once more with a
+    # doubled bridge) and the map keeps the primary
     big = make_scene(n_cams=16, n_points=250, noise_px=0.3, seed=3)
     rng = np.random.default_rng(7)
     uv2, desc2, mask2, _ = scene_features(big, rng, noise=0.05)
@@ -246,13 +256,31 @@ def test_reconstruct_errors(case):
     res = jmatching.match_pairs_float(jnp.asarray(desc2), jnp.asarray(mask2), jnp.asarray(pairs))
     jtt = jtracks.build_tracks(pairs, np.asarray(res.idx), np.asarray(res.valid), 16, uv2.shape[1])
     tt2 = TrackTable(jtt.obs_cam, jtt.obs_feat, jtt.obs_track, jtt.n_tracks)
-    cfg = tinc.ReconConfig(ransac_hypotheses=128)
-    with pytest.raises(NotImplementedError, match="register.py"):
-        tinc.reconstruct(uv2, mask2, tt2, intr, np.zeros(16, np.int32), cfg, device="cpu")
-    scene, stats = tinc.reconstruct(uv2, mask2, tt2, intr, np.zeros(16, np.int32),
-                                    dataclasses.replace(cfg, max_components=1), device="cpu")
-    assert stats["n_registered"] == 8 and stats["components"] == [
+    cam_k2 = np.zeros(16, np.int32)
+    scene, stats = tinc.reconstruct(uv2, mask2, tt2, intr, cam_k2,
+                                    tinc.ReconConfig(ransac_hypotheses=128), device="cpu")
+    jscene, jstats = jinc.reconstruct(uv2, mask2, jtt, intr, cam_k2,
+                                      jinc.ReconConfig(ransac_hypotheses=128))
+    assert stats["n_registered"] == jstats["n_registered"] == 8
+    assert [c["component"] for c in stats["components"]] == \
+        [c["component"] for c in jstats["components"]] == [0, 1, 1]
+    for got, ref in zip(stats["components"][1:], jstats["components"][1:]):
+        assert got["new_cams"] == ref["new_cams"] == 8
+        assert got["fail"].startswith("sim3 verification: point-correspondence registration "
+                                      "failed verification")
+        assert ref["fail"].startswith("sim3 verification: point-correspondence registration "
+                                      "failed verification")
+    assert np.array_equal(scene.cam_alive.numpy(), np.asarray(jscene.cam_alive))
+    assert stats["component_loop_s"]["wall"] > 0
+    scene1, stats1 = tinc.reconstruct(uv2, mask2, tt2, intr, cam_k2,
+                                      tinc.ReconConfig(ransac_hypotheses=128, max_components=1),
+                                      device="cpu")
+    assert stats1["n_registered"] == 8 and stats1["components"] == [
         {"component": 0, "registered": 8}]
+    # the failed components left no trace: every piece of state they touched
+    # came back from the snapshot, so the final BA saw the same input
+    for f in ("cam_R", "cam_t", "cam_alive", "X", "X_alive", "obs_alive"):
+        assert torch.equal(getattr(scene, f), getattr(scene1, f)), f
 
 
 def test_recon_config_equals_reference():
