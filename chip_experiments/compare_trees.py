@@ -112,7 +112,7 @@ def served_k3_inputs(path: Path) -> None:
                                           cs.FOCAL, cs.RENDER_WORKERS)
     cfg = F.ScaleSpaceConfig()
     levels, resp = ss.build_scale_space_and_response(torch.as_tensor(frames, device="cuda"), cfg)
-    kp = F.detect(levels, resp, cfg, max_keypoints=1024, threshold=1e-7)
+    kp = F.detect(levels, resp, cfg, max_keypoints=1024, threshold=1e-7, with_orientation=False)
     torch.save({"levels": levels.contiguous(), "uv": kp.uv, "level": kp.level, "sigma": kp.sigma,
                 "mask": kp.mask}, path)
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the sfmx_torch query-localization, map-scale serving, map-build
 front-end and reconstruction paths (secondary components, the checkpointed
-final BA, the merge of two sessions and self-calibration included) once on
+final BA, the merge of two sessions and self-calibration included), the
+command line end to end, streaming, oriented and SIFT extraction, once on
 one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
@@ -167,6 +168,33 @@ Phases (each asserts; any failure exits non-zero):
                   < 1 px); with --profile the device time and busy share of
                   phase 22's first fusion solve and of the walk's joint
                   solve
+ 25. cli        — the CLI at full width (``PipelineConfig()`` defaults, VGA),
+                  every command through ``sfmx_torch.cli.main.main([...])``
+                  with ``--device cuda``; the 96 frames written as raw 8-bit
+                  files that the ingest seam decodes (the card's machine has
+                  no PIL): build-map (96/96, < 1 px, ATE < 0.1 m, stage
+                  walls), localize of 16 held-out frames (median < 0.2 m,
+                  >= 12 localized), evaluate against the true centers (ATE
+                  < 0.1 m), export (vertices = alive points + 5 per camera),
+                  georeference on 4 control cameras (control_rmse < 0.1),
+                  merge of two build-map stores (frames 0-59, 36-95: ATE
+                  < 0.1 m), bundle / unbundle byte-equal
+ 26. streaming  — ``extract_features_streaming`` of the 96 files in chunks of
+                  16 against eager extraction of the decoded frames (bit for
+                  bit, else within 1e-4 and why), both walls, the busy share;
+                  ``build-map --stream`` (96/96)
+ 27. oriented   — ``oriented=True`` on a B=16 VGA batch, card against this
+                  machine's CPU (>= 95 % of keypoints within 0.01 px and
+                  1e-3 rad, descriptors within 1e-3), device ms beside the
+                  upright batch's; tests/test_features.py's 25-degree rotated
+                  pair gates on the card
+ 28. sift       — ``extractor=sift`` card against CPU (4 VGA frames, as 27);
+                  tests/test_sift.py's gates at its sizes on the card; the 96
+                  frames through ``build_map`` with SIFT, printed, ungated
+ 29. determinism — build-map of the 96 frames a second time with the same
+                  seed: whether stats (timings aside) and every scene and
+                  feature array are bit-identical with phase 25's, which
+                  differ and by how much; both under the build gates
 The last two lines are the kernel JSON and the device JSON.  K4's entry
 holds the serving batch's shape and, as ``tail_ms``, ``tail_bound_ms`` and
 ``splits``, the burst tail's; ``ms`` times the wrapper on f32 descriptors
@@ -406,7 +434,8 @@ def phase_kernels(images, dev, profile: bool = False) -> dict:
         resp_p = ss.response_levels_plain(levels, cfg.sigma_levels)
         err2 = float((resp - resp_p).abs().max())
         # K3 on the keypoints the path detects
-        kp = F.detect(levels, resp_p, cfg, max_keypoints=K, threshold=1e-7)
+        kp = F.detect(levels, resp_p, cfg, max_keypoints=K, threshold=1e-7,
+                     with_orientation=False)
         args = (levels, kp.uv, kp.level, kp.sigma, kp.mask)
         err3 = float((dsc.describe_upright(*args) - dsc.describe_upright_reference(*args))
                      .abs().max())
@@ -2460,6 +2489,577 @@ def phase_selfcal(frames, poses, dev, smi: str, profile: bool) -> dict:
     return after
 
 
+# ---------------------------------------------------------------------------
+# The single-device rest: the CLI end to end, streaming extraction, oriented
+# and SIFT extraction, determinism (phases 25-29)
+# ---------------------------------------------------------------------------
+
+CLI_ROOT = ROOT / ".chip_scratch" / "cli"
+STREAM_CHUNK = 16                  # phase 26: decoded frames per chunk
+ORIENT_BATCH, SIFT_XCHECK = 16, 4  # phases 27, 28: VGA frames checked card against CPU
+# Card against CPU (phases 27-28): K1 differs from its plain version by up to
+# 1e-5 and the card's blur from the CPU's by an ulp or two, which moves a few
+# keypoints' NMS or subpixel fit; of those that agree (within 0.01 px and
+# 1e-3 rad) a 1e-3 rad turn of a 20-sigma patch (up to 240 px across in
+# octave 1) moves its corner samples by up to 0.12 px, a unit descriptor by
+# up to ~1e-3 (1.06e-3 measured at B=16 VGA on an H100): hence 2e-3.
+AGREE_SHARE, AGREE_PX, AGREE_RAD, AGREE_DESC = 0.95, 0.01, 1e-3, 2e-3
+CLI_TIMING_KEYS = {"phase_s", "ba_total_s", "ba_iters_per_s", "ba_call_s",
+                   "component_loop_s"}
+
+
+def CLI_GEOMETRY() -> list[str]:
+    """The CLI's image size and focal (f = 0.875 x 640 = FOCAL) as -D flags."""
+    return ["-D", f"resize_to={W_IMG},{H_IMG}", "-D", f"focal_factor={FOCAL / W_IMG}"]
+
+
+def write_raw_frames(d: Path, frames, first: int = 0) -> list[Path]:
+    """Frames as raw 8-bit gray files f<i>.png (a 4-byte (h, w) uint16
+    header, then the pixels), the quantization a PNG round trip applies;
+    ``raw_load_gray`` decodes them where the card's machine has no PIL."""
+    d.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, f in enumerate(frames):
+        p = d / f"f{first + i:03d}.png"
+        u8 = (np.clip(f, 0.0, 1.0) * 255).astype(np.uint8)
+        p.write_bytes(np.asarray(u8.shape, np.uint16).tobytes() + u8.tobytes())
+        paths.append(p)
+    return paths
+
+
+def raw_load_gray(path, size):
+    """``ingest._load_gray``'s contract for the raw files: (H,W) float32 in
+    [0,1] (the PNG decode's / 255) and the original (w, h); no resize."""
+    raw = Path(path).read_bytes()
+    h, w = (int(v) for v in np.frombuffer(raw[:4], np.uint16))
+    assert size is None or tuple(size) == (w, h), f"the seam does not resize: {size}"
+    return np.frombuffer(raw[4:], np.uint8).reshape(h, w).astype(np.float32) / 255.0, (w, h)
+
+
+@contextlib.contextmanager
+def ingest_seam():
+    """Bind ``sfmx_torch.cli.ingest._load_gray`` to the raw-file decoder
+    while the block runs (the package keeps its one PIL code path)."""
+    from sfmx_torch.cli import ingest
+
+    orig = ingest._load_gray
+    ingest._load_gray = raw_load_gray
+    try:
+        yield
+    finally:
+        ingest._load_gray = orig
+
+
+def run_cli(argv: list[str]):
+    """``sfmx_torch.cli.main.main(argv)`` with its standard output and stage
+    log captured: (the output, stage records by name, host wall s, the card
+    synchronized on both sides)."""
+    import io
+
+    from sfmx_torch.cli.main import main as cli_main
+    from sfmx_torch.utils.logging import LOGGER
+
+    out, buf, old = io.StringIO(), io.StringIO(), LOGGER._stream
+    LOGGER._stream = buf
+    try:
+        with contextlib.redirect_stdout(out):
+            _, wall = synced(lambda: cli_main(argv))
+    finally:
+        LOGGER._stream = old
+    stages = {}
+    for r in map(json.loads, buf.getvalue().splitlines()):
+        stages.setdefault(r["stage"], r)
+    return out.getvalue(), stages, wall
+
+
+def store_ate(path, eyes, dev) -> tuple[float, tuple]:
+    """ATE (m) of a scene store's alive camera centers against the rendered
+    eyes after a similarity alignment, and that similarity."""
+    import torch
+
+    from sfmx_torch.mapstore.scene import load_scene
+    from sfmx_torch.solvers import umeyama
+
+    scene = load_scene(path, dev)
+    ate, sim = umeyama.ate_rmse(scene.centers, torch.as_tensor(
+        np.asarray(eyes), dtype=torch.float32, device=dev), scene.cam_alive)
+    return float(ate), sim
+
+
+def stage_walls(stages: dict) -> str:
+    return ", ".join(f"{k} {r['wall_s']:.3f} s" for k, r in stages.items())
+
+
+def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, dict]:
+    """Phase 25.  The CLI at full width (``PipelineConfig()`` defaults, 1024
+    keypoints, VGA), every command through ``main([...]) --device cuda``,
+    the 8-bit frames decoded by the ingest seam: build-map of the 96 frames
+    (gates: 96/96, < 1 px, ATE < 0.1 m; stage walls), localize of
+    N_LOOP_QUERIES held-out frames (median < 0.2 m, >= 12 localized),
+    evaluate against a text file of the true centers (ATE < 0.1 m), export
+    (vertices = alive points + 5 per alive camera), georeference on 4
+    control cameras (control_rmse < 0.1), merge of two build-map stores
+    (frames 0-59 and 36-95: ATE < 0.1 m over the 120 centers), and a
+    bundle / unbundle round trip with byte-equal files.  Returns (the
+    launches of the phase's commands, counted from 0, and the build's
+    record)."""
+    import filecmp
+    import os
+    import shutil
+
+    import torch
+
+    from examples import room
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.mapstore.scene import load_manifest
+    from sfmx_torch.solvers import umeyama
+
+    if CLI_ROOT.exists():
+        shutil.rmtree(CLI_ROOT)
+    walk = CLI_ROOT / "walk"
+    paths = write_raw_frames(walk, frames)
+    mids = room.walk_poses(N_BAND - 1)[1::2]
+    qposes = [mids[i] for i in np.round(np.linspace(0, N_BUILD - 2, N_LOOP_QUERIES)).astype(int)]
+    write_raw_frames(CLI_ROOT / "queries", render(tex, qposes))
+    eyes = np.stack([eye for _R, _t, eye in poses])
+    dv = ["--device", str(dev)]
+    focal = CLI_GEOMETRY()
+    store = str(CLI_ROOT / "map")
+    cmds = {}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    with ingest_seam():
+        out, stages, wall = run_cli(["build-map", str(walk), "-o", store, *focal, *dv])
+        rec = json.loads(out.strip().splitlines()[-1])
+        cmds["build-map"] = wall
+        st = load_manifest(store)["extra"]["stats"]
+        ate, sim = store_ate(store, eyes, dev)
+        log(f"[cli] build-map of {len(paths)} frames in {wall:.3f} s: {json.dumps(rec)}; "
+            f"stage walls {stage_walls(stages)}; median reprojection {st['final_med_px']:.4f} px, "
+            f"ATE {ate:.4f} m (phase 18 on the float frames: {ate18:.4f}); seed pairs "
+            f"{st.get('init_pairs')}; on {smi}")
+        assert rec["registered"] == len(paths), f"cli build-map: {rec}"
+        assert st["final_med_px"] < REPROJ_GATE_PX, f"cli build-map: {st['final_med_px']} px"
+        assert np.isfinite(ate) and ate < ATE_GATE_M, f"cli build-map: ATE {ate}"
+
+        out, _, wall = run_cli(["localize", store, str(CLI_ROOT / "queries"), *focal, *dv])
+        cmds["localize"] = wall
+        res = json.loads(out)
+        centers = torch.as_tensor([r["center"] for r in res], dtype=torch.float32, device=dev)
+        world = umeyama.apply_sim3(*sim, centers).cpu().numpy()
+        errs = np.linalg.norm(world - np.stack([e for _R, _t, e in qposes]), axis=1)
+        n_loc = sum(r["confidence"] > 0 for r in res)
+        log(f"[cli] localize of {len(res)} held-out frames in {wall:.3f} s: center errors "
+            f"median {np.median(errs):.4f} m (gate < {MEDIAN_GATE_M}), max {errs.max():.4f}; "
+            f"{n_loc}/{len(res)} localized (gate >= {N_LOOP_MIN})")
+        assert np.median(errs) < MEDIAN_GATE_M and n_loc >= N_LOOP_MIN, (errs, n_loc)
+
+    ref_txt = CLI_ROOT / "centers.txt"
+    np.savetxt(ref_txt, eyes)
+    out, _, cmds["evaluate"] = run_cli(["evaluate", store, "--reference", str(ref_txt), *dv])
+    report = json.loads(out)
+    log(f"[cli] evaluate: {json.dumps(report)}")
+    assert report["trajectory"]["ate_rmse"] < ATE_GATE_M, report
+    assert report["scene"]["reproj_rmse_px"] < 2 * REPROJ_GATE_PX, report
+
+    out, _, cmds["export"] = run_cli(["export", store, "-o", str(CLI_ROOT / "map.ply"), *dv])
+    ply = json.loads(out)
+    n_pts, n_cams = report["scene"]["n_points"], report["scene"]["n_cameras"]
+    log(f"[cli] export: {json.dumps(ply)} ({n_pts} points + 5 x {n_cams} frustum vertices)")
+    assert ply["vertices"] == n_pts + 5 * n_cams, ply
+
+    ctrl = CLI_ROOT / "control.json"
+    pick = np.round(np.linspace(0, len(eyes) - 1, 4)).astype(int)   # 4 control cameras
+    ctrl.write_text(json.dumps([[int(i), *eyes[i].tolist()] for i in pick]))
+    out, _, cmds["georeference"] = run_cli(["georeference", store, str(ctrl), "-o",
+                                            str(CLI_ROOT / "map_geo"), *dv])
+    geo = json.loads(out)
+    log(f"[cli] georeference on 4 control cameras: {json.dumps(geo)}")
+    assert geo["control_rmse"] < 0.1, geo
+
+    sessions, s_eyes = [], []
+    with ingest_seam():
+        for i, (lo, hi) in enumerate(MERGE_SESSIONS):
+            d = CLI_ROOT / f"session{i}"
+            d.mkdir()
+            for p in paths[lo:hi]:
+                os.link(p, d / p.name)
+            sessions.append(str(CLI_ROOT / f"session{i}_map"))
+            out, _, cmds[f"build-map session {i}"] = run_cli(
+                ["build-map", str(d), "-o", sessions[-1], *focal, *dv])
+            assert json.loads(out.strip().splitlines()[-1])["registered"] == hi - lo, out
+            s_eyes.append(eyes[lo:hi])
+    merged = str(CLI_ROOT / "merged")
+    out, _, cmds["merge"] = run_cli(["merge", *sessions, "-o", merged, *dv])
+    mrec = json.loads(out)
+    m_ate, _ = store_ate(merged, np.concatenate(s_eyes), dev)
+    log(f"[cli] merge of sessions {MERGE_SESSIONS}: {mrec['n_cameras']} cameras, "
+        f"{mrec['n_points']} points, edges {json.dumps(mrec['edges'])}, failed "
+        f"{len(mrec['failed_edges'])}; ATE of the {mrec['n_cameras']} centers {m_ate:.4f} m "
+        f"(gate < {ATE_GATE_M})")
+    assert not mrec["failed_edges"] and np.isfinite(m_ate) and m_ate < ATE_GATE_M, mrec
+
+    bundle = str(CLI_ROOT / "deploy.tar.gz")
+    out, _, cmds["bundle"] = run_cli(["bundle", store, "-o", bundle, *dv])
+    brec = json.loads(out)
+    out, _, cmds["unbundle"] = run_cli(["unbundle", bundle, "-d", str(CLI_ROOT / "deployed"),
+                                        *dv])
+    urec = json.loads(out)
+    got = Path(urec["maps"][0])
+    same = [filecmp.dircmp(store + sfx, str(got) + sfx) for sfx in ("", ".lmap")]
+    equal = all(not (c.diff_files or c.left_only or c.right_only or c.funny_files)
+                and filecmp.cmpfiles(c.left, c.right, c.common_files, shallow=False)[1] == []
+                for c in same)
+    equal &= filecmp.cmp(store + ".feats.npz", str(got) + ".feats.npz", shallow=False)
+    log(f"[cli] bundle {json.dumps(brec)}; unbundle {json.dumps(urec)}; files byte-equal "
+        f"{equal}")
+    assert brec["map_artifacts"] == 3 and equal, (brec, urec)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    log(f"[cli] command walls (s, the card synchronized) "
+        f"{json.dumps({k: round(v, 3) for k, v in cmds.items()})}; launches "
+        f"{json.dumps(launches)}")
+    return launches, {"store": store, "stats": st, "ate": ate}
+
+
+def phase_streaming(frames, dev, smi: str) -> dict:
+    """Phase 26.  ``extract_features_streaming`` of the 96 raw frames in
+    chunks of STREAM_CHUNK on the card against eager ``extract_features`` of
+    the same decoded frames (bit for bit, else within K1's 1e-4 and why);
+    the streaming wall beside the eager one (decode everything, then
+    extract) three times in turn, and the device's busy share of the
+    streaming wall (torch.profiler); then ``build-map --stream`` through the
+    CLI (gate: 96/96).  Returns the launches of the streaming run and of
+    that build, counted from 0."""
+    import torch
+
+    from sfmx_torch.cli import ingest
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features, extract_features_streaming
+    from sfmx_torch.kernels import _build
+
+    cfg = PipelineConfig()
+    paths = ingest.list_images(CLI_ROOT / "walk")
+    with ingest_seam():
+        torch.cuda.synchronize()
+        _build.LAUNCHES.reset()
+        (feats, sizes), _ = synced(lambda: extract_features_streaming(
+            paths, cfg, dev, chunk=STREAM_CHUNK, resize_to=(W_IMG, H_IMG)))
+        launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+        ws = ingest.load_directory(CLI_ROOT / "walk", resize_to=(W_IMG, H_IMG))
+        eager = extract_features(ws.images, cfg, dev)
+        fields = ("uv", "level", "sigma", "angle", "response", "mask", "desc", "desc_bits")
+        got = dict(zip(fields, (*feats.kp, feats.desc, feats.desc_bits)))
+        ref = dict(zip(fields, (*eager.kp, eager.desc, eager.desc_bits)))
+        diff = {k: float((got[k].double() - ref[k].double()).abs().max()) for k in fields}
+        bit_equal = all(torch.equal(got[k], ref[k]) for k in fields)
+        m = ref["mask"]
+        mask_share = float((got["mask"] == m).double().mean())
+        desc_err = float((got["desc"][m] - ref["desc"][m]).abs().max())
+
+        def eager_run():
+            return extract_features(ingest.load_directory(
+                CLI_ROOT / "walk", resize_to=(W_IMG, H_IMG)).images, cfg, dev)
+
+        def stream_run():
+            return extract_features_streaming(paths, cfg, dev, chunk=STREAM_CHUNK,
+                                              resize_to=(W_IMG, H_IMG))
+
+        walls = {"eager": [], "streaming": []}
+        for _ in range(3):
+            walls["eager"].append(synced(eager_run)[1])
+            walls["streaming"].append(synced(stream_run)[1])
+        _ms, by, _t = device_ms_per_run(stream_run, reps=1)
+        # the stage log's record_function range has a device-side span too
+        dev_ms = sum(t for k, t in by.items() if k != "extract_stream")
+    s_wall = float(np.median(walls["streaming"]))
+    log(f"[stream] {len(paths)} frames in chunks of {STREAM_CHUNK}: bit-equal to eager "
+        f"extraction {bit_equal}; largest field differences {json.dumps(diff)}; masks equal in "
+        f"{mask_share:.5f} of the slots, descriptors of the eager valid slots within "
+        f"{desc_err:.3g}; walls (s, decode included) eager "
+        f"{[round(w, 3) for w in walls['eager']]}, streaming "
+        f"{[round(w, 3) for w in walls['streaming']]}; streaming device time "
+        f"{dev_ms:.2f} ms, busy {dev_ms / (s_wall * 1e3):.3f} of its median wall; launches "
+        f"{json.dumps(launches)}; on {smi}")
+    assert sizes.shape == (len(paths), 2) and feats.desc.shape[0] == len(paths)
+    assert bit_equal or (mask_share == 1.0 and desc_err <= 1e-4), (diff, mask_share)
+    ext = extraction_launches()
+    n_chunks = -(-len(paths) // STREAM_CHUNK)
+    check_launches("streaming extraction", launches, {k: v * n_chunks for k, v in ext.items()})
+
+    with ingest_seam():
+        _build.LAUNCHES.reset()
+        out, stages, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o",
+                                     str(CLI_ROOT / "map_stream"), "--stream", "--chunk",
+                                     str(STREAM_CHUNK), *CLI_GEOMETRY(), "--device", str(dev)])
+        b_launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    rec = json.loads(out.strip().splitlines()[-1])
+    log(f"[stream] build-map --stream in {wall:.3f} s: {json.dumps(rec)}; stage walls "
+        f"{stage_walls(stages)}; launches {json.dumps(b_launches)}")
+    assert rec["registered"] == len(paths), rec
+    add_launches(launches, b_launches)
+    return launches
+
+
+def agreeing_share(got, ref, tol_px: float = AGREE_PX, tol_rad: float = AGREE_RAD):
+    """Per image, the share of the reference's valid keypoints that have a
+    keypoint of ``got`` within tol_px whose angle is within tol_rad (mod
+    2 pi); the smallest share and the largest descriptor difference over
+    the agreeing keypoints."""
+    import torch
+
+    shares, worst = [], 0.0
+    for b in range(ref.kp.mask.shape[0]):
+        rm, gm = ref.kp.mask[b], got.kp.mask[b].cpu()
+        d = torch.cdist(ref.kp.uv[b][rm].double(), got.kp.uv[b].cpu()[gm].double())
+        dmin, j = d.min(dim=1)
+        da = torch.remainder(ref.kp.angle[b][rm] - got.kp.angle[b].cpu()[gm][j] + np.pi,
+                             2 * np.pi) - np.pi
+        good = (dmin < tol_px) & (da.abs() < tol_rad)
+        shares.append(float(good.double().mean()))
+        dd = (ref.desc[b][rm] - got.desc[b].cpu()[gm][j]).abs().amax(dim=1)[good]
+        worst = max(worst, float(dd.max()) if len(dd) else 0.0)
+    return min(shares), worst
+
+
+def phase_oriented(frames, dev, smi: str) -> dict:
+    """Phase 27.  ``oriented=True`` extraction (K1/K2, then the gradient-
+    centroid angle and the rotated-patch gathers in plain torch) of an
+    ORIENT_BATCH-frame VGA batch at the cli's widths (1024 keypoints, 2
+    octaves): on the card against the port on this machine's CPU
+    (>= AGREE_SHARE of the CPU's keypoints within AGREE_PX px and AGREE_RAD
+    rad, their descriptors within AGREE_DESC), device ms per batch beside
+    the upright batch's (torch.profiler); then the reference test's
+    rotation gates on the card: the 25-degree rotated pair at 160x160
+    (tests/test_features.py).  Returns the oriented batch's launches."""
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.kernels import features as F
+    from sfmx_torch.kernels import matching
+    from tests import smoke_scenes
+
+    fc = PipelineConfig().features
+    kw = dict(max_keypoints=fc.max_keypoints, threshold=fc.threshold, n_octaves=fc.n_octaves)
+    imgs = torch.as_tensor(frames[:ORIENT_BATCH], dtype=torch.float32)
+    gi = imgs.to(dev)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    got, wall = synced(lambda: F.detect_and_describe(gi, oriented=True, **kw))
+    launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    t0 = time.perf_counter()
+    ref = F.detect_and_describe(imgs, oriented=True, **kw)
+    cpu_s = time.perf_counter() - t0
+    share, worst = agreeing_share(got, ref)
+    ms_o, by_o, _ = device_ms_per_run(lambda: F.detect_and_describe(gi, oriented=True, **kw), 3)
+    ms_u, _, _ = device_ms_per_run(lambda: F.detect_and_describe(gi, **kw), 3)
+    top = sorted(by_o.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[oriented] B={ORIENT_BATCH} VGA, {kw}: card against the CPU: {share:.4f} of the "
+        f"CPU's keypoints agree (gate >= {AGREE_SHARE}), descriptors within {worst:.3g} (gate "
+        f"< {AGREE_DESC}); {int(ref.kp.mask.sum())} CPU keypoints; CPU {cpu_s:.2f} s; first "
+        f"card call {wall * 1e3:.1f} ms; device time per batch {ms_o:.3f} ms oriented, "
+        f"{ms_u:.3f} ms upright (torch.profiler, 3 batches; largest oriented ops "
+        + ", ".join(f"{n[:40]} {t:.3f}" for n, t in top) + f"); launches {json.dumps(launches)}; "
+        f"on {smi}")
+    assert share >= AGREE_SHARE and worst < AGREE_DESC, (share, worst)
+    ext = extraction_launches()
+    check_launches("oriented extraction", launches, {**ext, "describe_upright": 0})
+
+    pair, M = smoke_scenes.rotated_pair()
+    f = F.detect_and_describe(torch.as_tensor(pair, device=dev), max_keypoints=200,
+                              threshold=1e-7, oriented=True)
+    m = f.kp.mask.cpu()
+    n0, n1 = int(m[0].sum()), int(m[1].sum())
+    uv0, uv1 = f.kp.uv[0].cpu().numpy(), f.kp.uv[1].cpu().numpy()
+    proj = np.hstack([uv0[m[0]], np.ones((n0, 1))]) @ M.T
+    H_, W_ = pair.shape[1:]
+    inside = (proj[:, 0] > 12) & (proj[:, 0] < W_ - 12) & (proj[:, 1] > 12) & (proj[:, 1] < H_ - 12)
+    dmin = np.linalg.norm(proj[inside][:, None] - uv1[m[1]][None], axis=2).min(axis=1)
+    repeat = float((dmin < 3.0).mean())
+    res = matching.match_float(f.desc[0], f.desc[1], f.kp.mask[0], f.kp.mask[1], ratio=0.85)
+    idx, valid = res.idx.cpu().numpy(), res.valid.cpu().numpy()
+    pall = np.hstack([uv0, np.ones((len(uv0), 1))]) @ M.T
+    err = np.linalg.norm(pall[valid] - uv1[idx[valid]], axis=1)
+    prec = float((err < 4.0).mean()) if len(err) else 0.0
+    resh = matching.match_hamming(f.desc_bits[0], f.desc_bits[1], f.kp.mask[0], f.kp.mask[1],
+                                  ratio=0.85)
+    both = (resh.valid & res.valid).cpu().numpy()
+    agree = float((resh.idx.cpu().numpy()[both] == idx[both]).mean()) if both.any() else 0.0
+    log(f"[oriented] 25-degree rotated pair at 160x160 on the card: {n0}/{n1} keypoints (gate "
+        f"> 30), repeatability {repeat:.3f} (gate > 0.5), {int(valid.sum())} float matches "
+        f"(gate >= 15) of precision {prec:.3f} (gate > 0.7), binary agrees on {agree:.3f} of "
+        f"{int(both.sum())} shared matches (gate > 0.8 where > 5)")
+    assert n0 > 30 and n1 > 30 and repeat > 0.5 and valid.sum() >= 15 and prec > 0.7
+    assert both.sum() <= 5 or agree > 0.8
+    return launches
+
+
+def phase_sift(frames, poses, dev, smi: str) -> dict:
+    """Phase 28.  The SIFT extractor (plain torch on the card: the blur
+    through cuDNN): SIFT_XCHECK VGA frames at the cli's widths
+    (``extractor=sift``: threshold 0.015, 1024 keypoints, 2 octaves) on the
+    card against this machine's CPU (as phase 27); tests/test_sift.py's
+    gates at its sizes on the card (> 50 keypoints, > 30 coherent two-view
+    matches, >= 5 of 6 registered with > 50 points, >= 8 good matches
+    across a 4.4x scale change, the downscale in numpy); then the 96 frames
+    through ``build_map`` with ``extractor=sift``: registered, px, ATE and
+    stage walls printed, ungated.  Returns the launches of that build and
+    of the 6-frame build, counted from 0."""
+    import torch
+
+    from examples import room
+    from sfmx_torch.cli.config import load_config
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.kernels import features as F
+    from sfmx_torch.kernels import matching, sift
+    from tests import smoke_scenes
+
+    cfg = load_config(overrides=["features.extractor=sift"])
+    imgs = frames[:SIFT_XCHECK]
+    got, wall = synced(lambda: extract_features(imgs, cfg, dev))
+    t0 = time.perf_counter()
+    ref = extract_features(imgs, cfg, "cpu")
+    cpu_s = time.perf_counter() - t0
+    share, worst = agreeing_share(got, ref)
+    ms, _, _ = device_ms_per_run(lambda: extract_features(imgs, cfg, dev), 3)
+    log(f"[sift] B={SIFT_XCHECK} VGA, extractor=sift at the cli's widths: card against the "
+        f"CPU: {share:.4f} agree (gate >= {AGREE_SHARE}), descriptors within {worst:.3g} "
+        f"(gate < {AGREE_DESC}); {int(ref.kp.mask.sum())} CPU keypoints; CPU {cpu_s:.2f} s, "
+        f"first card call {wall * 1e3:.1f} ms, device time per batch {ms:.3f} ms; on {smi}")
+    assert share >= AGREE_SHARE and worst < AGREE_DESC, (share, worst)
+
+    tex = room.RoomTexture(seed=3)
+    views = smoke_scenes.render(tex, room.walk_poses(10)[:6], 320, 240, 280.0)
+    f1 = sift.detect_and_describe_sift(torch.as_tensor(views[:1], device=dev), max_keypoints=256)
+    n1 = int(f1.kp.mask.sum())
+    f2 = sift.detect_and_describe_sift(torch.as_tensor(views[:2], device=dev), max_keypoints=384)
+    m = matching.match_float(f2.desc[0], f2.desc[1], f2.kp.mask[0], f2.kp.mask[1], ratio=0.9)
+    valid = m.valid.cpu().numpy()
+    disp = f2.kp.uv[1].cpu().numpy()[m.idx.cpu().numpy()[valid]] - f2.kp.uv[0].cpu().numpy()[valid]
+    coherent = float((np.linalg.norm(disp - np.median(disp, axis=0), axis=1) < 30.0).mean())
+    c6 = load_config(overrides=["features.extractor=sift", "features.max_keypoints=384",
+                                "match.ratio=0.9"])
+    _build.LAUNCHES.reset()
+    scene6, _f, _tt, st6, w6, _ = run_build("sift 6 views", views, room.walk_poses(10)[:6], c6,
+                                            dev, intr=np.array([280.0, 280.0, 160.0, 120.0, 0, 0,
+                                                                0], np.float32))
+    launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    rng = np.random.default_rng(5)
+    img = F.gaussian_blur(torch.as_tensor(rng.random((1, 240, 320)), dtype=torch.float32,
+                                          device=dev), 3.0)[0].cpu().numpy()
+    img = (img - img.min()) / (img.max() - img.min() + 1e-9)
+    small = smoke_scenes.resize_bilinear(img, (72, 54))
+    g1 = sift.detect_and_describe_sift(torch.as_tensor(img[None], device=dev),
+                                       max_keypoints=512, n_octaves=3)
+    g2 = sift.detect_and_describe_sift(torch.as_tensor(small[None], device=dev),
+                                       max_keypoints=512)
+    res = matching.match_pairs_float_auto(torch.cat([g1.desc, g2.desc]),
+                                          torch.cat([g1.kp.mask, g2.kp.mask]),
+                                          np.asarray([[0, 1]], np.int32))
+    idx, val = res.idx[0].cpu().numpy(), res.valid[0].cpu().numpy()
+    err = np.linalg.norm(g1.kp.uv[0].cpu().numpy() / (320.0 / 72.0)
+                         - g2.kp.uv[0].cpu().numpy()[idx], axis=1)
+    n_good = int((val & (err < 3.0)).sum())
+    log(f"[sift] tests/test_sift.py's gates on the card: {n1} keypoints (gate > 50); "
+        f"{int(valid.sum())} two-view matches (gate > 30), {coherent:.3f} coherent (gate > 0.5); "
+        f"6 views: {st6['n_registered']} registered (gate >= 5), {st6['n_points']} points "
+        f"(gate > 50); {n_good} good matches across the 4.4x scale change (gate >= 8)")
+    assert n1 > 50 and valid.sum() > 30 and coherent > 0.5, (n1, valid.sum(), coherent)
+    assert st6["n_registered"] >= 5 and st6["n_points"] > 50, st6
+    assert n_good >= 8, n_good
+
+    cfg96 = load_config(overrides=["features.extractor=sift"])
+    _build.LAUNCHES.reset()
+    import io
+
+    from sfmx_torch.utils.logging import LOGGER
+
+    buf, old = io.StringIO(), LOGGER._stream
+    LOGGER._stream = buf
+    try:
+        from sfmx_torch.cli.pipeline import build_map
+
+        (scene, _f, _tt, stats), wall = synced(lambda: build_map(
+            frames, INTR[None], np.zeros(len(frames), np.int32), cfg96, dev,
+            generator=torch.Generator(device=dev).manual_seed(0)))
+    finally:
+        LOGGER._stream = old
+    stages = {r["stage"]: r for r in map(json.loads, buf.getvalue().splitlines())}
+    from sfmx_torch.solvers import umeyama
+
+    ate = float(umeyama.ate_rmse(scene.centers, torch.as_tensor(
+        np.stack([e for _R, _t, e in poses]), dtype=torch.float32, device=dev),
+        scene.cam_alive)[0])
+    add_launches(launches, {k: v for k, v in _build.LAUNCHES.counts.items() if v})
+    log(f"[sift] {len(frames)} frames through build_map with extractor=sift in {wall:.3f} s "
+        f"(ungated): {stats['n_registered']}/{len(frames)} registered, {stats['n_points']} "
+        f"points, median reprojection {stats['final_med_px']} px, ATE {ate:.4f} m; stage walls "
+        f"{stage_walls(stages)}; launches of both builds {json.dumps(launches)}; on {smi}")
+    return launches
+
+
+def phase_determinism(cli: dict, dev, smi: str) -> dict:
+    """Phase 29.  build-map of the 96 frames a second time through the CLI
+    with the same seed, beside phase 25's: whether ``stats`` (timings aside)
+    and every scene array and feature array are bit-identical, and, where
+    not, which differ and by how much and whether the seed pair moved; both
+    builds held to the map-quality gates.  Returns the second build's
+    launches, counted from 0."""
+    import torch
+
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.mapstore.scene import SCENE_FIELDS, load_manifest, load_scene_np
+
+    store2 = str(CLI_ROOT / "map_again")
+    with ingest_seam():
+        torch.cuda.synchronize()
+        _build.LAUNCHES.reset()
+        out, _, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o", store2,
+                                *CLI_GEOMETRY(), "--device", str(dev)])
+        launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    st1 = cli["stats"]
+    st2 = load_manifest(store2)["extra"]["stats"]
+    s1 = {k: v for k, v in st1.items() if k not in CLI_TIMING_KEYS}
+    s2 = {k: v for k, v in st2.items() if k not in CLI_TIMING_KEYS}
+    a, b = load_scene_np(cli["store"]), load_scene_np(store2)
+    fa, fb = np.load(cli["store"] + ".feats.npz"), np.load(store2 + ".feats.npz")
+    # where not equal: alive flags by the entries that flip, values over the
+    # entries alive in both builds, the rest by their largest difference
+    both = {"cam_R": a["cam_alive"] & b["cam_alive"], "cam_t": a["cam_alive"] & b["cam_alive"],
+            "X": a["X_alive"] & b["X_alive"]}
+    diffs = {}
+    for name, x, y in ([(k, a[k], b[k]) for k in SCENE_FIELDS]
+                       + [(f"feats.{k}", fa[k], fb[k]) for k in fa.files]):
+        if x.shape != y.shape:
+            diffs[name] = f"shape {x.shape} vs {y.shape}"
+        elif np.array_equal(x, y):
+            continue
+        elif x.dtype == bool:
+            diffs[name] = f"{int((x != y).sum())} of {x.size} flip"
+        else:
+            sel = both.get(name, np.ones(len(x), bool))
+            diffs[name] = float(np.abs(x[sel].astype(np.float64)
+                                       - y[sel].astype(np.float64)).max())
+    stats_equal = s1 == s2
+    ate2, _ = store_ate(store2, np.loadtxt(CLI_ROOT / "centers.txt"), dev)
+    log(f"[determinism] build-map of the {N_BUILD} frames twice (phase 25's and one more in "
+        f"{wall:.3f} s), the same seed: stats equal (timings aside) {stats_equal}"
+        + ("" if stats_equal else "; differing stats "
+           + json.dumps({k: [s1.get(k), s2.get(k)] for k in s1.keys() | s2.keys()
+                         if s1.get(k) != s2.get(k)})[:600])
+        + f"; every scene and feature array bit-identical {not diffs}"
+        + (f"; differing arrays (largest difference over the entries alive in both) "
+           f"{json.dumps(diffs)}" if diffs else "")
+        + f"; seed pairs {st1.get('init_pairs')} and {st2.get('init_pairs')}; second build "
+        f"{json.loads(out.strip().splitlines()[-1])}, median reprojection "
+        f"{st2['final_med_px']:.4f} px, ATE {ate2:.4f} m; on {smi}")
+    assert st2["n_registered"] == N_BUILD, st2["n_registered"]
+    assert st2["final_med_px"] < REPROJ_GATE_PX and ate2 < ATE_GATE_M, (st2["final_med_px"], ate2)
+    return launches
+
+
 def phase_tune(dev, smi: str) -> None:
     """The sweeps behind the kernels' constants.  K1: the four segments of
     the default config on a 32-image VGA batch and on its half-size octave,
@@ -2694,6 +3294,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import sfmx_torch  # noqa: F401  (sets the TF32 flags)
     from examples import room
+    from sfmx_torch.solvers import umeyama
     from tests import smoke_scenes
 
     t_start = time.perf_counter()
@@ -2754,6 +3355,23 @@ def main() -> int:
     new_paths["components"], _fusion = phase_components(dev, smi, profile)
     new_paths["merge"] = phase_merge(build_frames, build_poses, dev, smi)
     new_paths["self-calibration"] = phase_selfcal(build_frames, build_poses, dev, smi, profile)
+    # the single-device rest (phases 25-29): each path's launches counted from 0
+    eyes = torch.as_tensor(np.stack([e for _R, _t, e in build_poses]), dtype=torch.float32,
+                           device=dev)
+    ate18 = float(umeyama.ate_rmse(scene.centers, eyes, scene.cam_alive)[0])
+    rest_paths = {}
+    rest_paths["cli"], cli = phase_cli(build_frames, build_poses, tex, dev, smi, ate18)
+    rest_paths["streaming"] = phase_streaming(build_frames, dev, smi)
+    rest_paths["oriented"] = phase_oriented(build_frames, dev, smi)
+    rest_paths["sift"] = phase_sift(build_frames, build_poses, dev, smi)
+    rest_paths["determinism"] = phase_determinism(cli, dev, smi)
+    ext = ("diffuse_segment", "response_levels", "describe_upright")
+    ba = ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused")
+    rest_need = {"cli": ext + ba, "streaming": ext + ba, "oriented": ext[:2], "sift": ba,
+                 "determinism": ext + ba}
+    for tag, got in rest_paths.items():
+        log(f"[counters] {tag} launches {json.dumps(got)}")
+        assert all(got.get(k, 0) > 0 for k in rest_need[tag]), f"{tag}: launches {got}"
     for tag, got in new_paths.items():
         log(f"[counters] {tag} launches {json.dumps(got)}")
         # every path but the merge runs K5 (the checkpointed path in its
@@ -2778,6 +3396,10 @@ def main() -> int:
     for got in new_paths.values():
         for k in ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused",
                   "ba_cost_fused"):
+            path_launches[k] += got.get(k, 0)
+    # and every kernel the launches of phases 25-29's paths
+    for got in rest_paths.values():
+        for k in KERNELS:
             path_launches[k] += got.get(k, 0)
     kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
                 "launches": path_launches[k], **kstats[k]} for k in KERNELS]

@@ -4,8 +4,8 @@ The package mirrors ``sfmx``'s sub-packages and module names so that each
 counterpart is easy to find:
 
 - ``sfmx_torch.core``     — SE(3)/SO(3), camera models, masking utilities
-- ``sfmx_torch.kernels``  — extraction (AKAZE-analog, upright), matching
-  helpers, the dense bundle-adjustment layout and the hand-written CUDA
+- ``sfmx_torch.kernels``  — extraction (AKAZE-analog, upright or oriented;
+  SIFT), matching helpers, the dense bundle-adjustment layout and the hand-written CUDA
   kernels K1-K10 with their plain PyTorch versions
 - ``sfmx_torch.solvers``  — small linear algebra, PnP (DLT, P3P), batched
   RANSAC, epipolar geometry, triangulation, the Schur complement and LM
@@ -15,8 +15,12 @@ counterpart is easy to find:
 - ``sfmx_torch.localize`` — VLAD retrieval, gather and streaming query
   localization, beacon fusion, sequential tracking
 - ``sfmx_torch.serve``    — the micro-batching localization service + HTTP API
-- ``sfmx_torch.cli``      — config tree, extraction dispatch, the map build,
-  batch and sequential localize, map loading, serve
+- ``sfmx_torch.cli``      — config tree, image ingest, extraction dispatch
+  (eager and streaming), the map build, batch and sequential localize, map
+  loading, serve, evaluation, PLY export and the argparse command line
+  (``python -m sfmx_torch.cli.main``)
+- ``sfmx_torch.utils``    — stage logging, debug mode (NaN trap)
+- ``sfmx_torch.demo``     — the end-to-end demo (``python -m sfmx_torch.demo``)
 
 It imports ``torch`` and never ``jax`` or ``sfmx``.  Device placement is
 explicit: every function works on the device of its inputs (or the

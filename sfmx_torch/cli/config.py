@@ -10,9 +10,9 @@ from ..recon.incremental import ReconConfig
 
 @dataclasses.dataclass(frozen=True)
 class FeatureConfig:
-    extractor: str = "akaze"  # akaze (nonlinear scale space) | sift (not ported)
+    extractor: str = "akaze"  # akaze (nonlinear scale space) | sift (DoG)
     max_keypoints: int = 1024
-    threshold: float = 1e-7   # det-Hessian threshold
+    threshold: float = 1e-7   # det-Hessian threshold; SIFT uses |DoG| (~0.015)
     sigma_levels: tuple = (2, 3, 4, 5, 6)
     oriented: bool = False    # upright default (gravity-aligned indoor rigs)
     n_octaves: int = 2        # 2x-downsampled octaves widen the scale band

@@ -1,9 +1,10 @@
-"""Batch pipeline (port of ``sfmx.cli.pipeline``): extraction dispatch and
-the map build — pair selection, matching, E-RANSAC verification, tracks and
-incremental reconstruction with bundle adjustment, the front-end stages
-behind the content-addressed stage cache (a killed build re-runs only the
-stages it had not finished).  Only the AKAZE-analog extractor is ported;
-streaming extraction and image ingest are not ported yet.
+"""Batch pipeline (port of ``sfmx.cli.pipeline``): extraction dispatch
+(the AKAZE analog or SIFT), streaming extraction that decodes chunk i+1 on
+host threads while the card extracts chunk i, and the map build — pair
+selection, matching, E-RANSAC verification, tracks and incremental
+reconstruction with bundle adjustment, the front-end stages behind the
+content-addressed stage cache (a killed build re-runs only the stages it
+had not finished).
 """
 from __future__ import annotations
 
@@ -24,14 +25,21 @@ from .config import PipelineConfig
 def _extract_raw(images, cfg: PipelineConfig, device) -> features.Features:
     """Extractor dispatch without any host sync: (N,H,W) images in [0,1],
     a numpy array or a tensor."""
-    if cfg.features.extractor != "akaze":
-        raise NotImplementedError(f"extractor={cfg.features.extractor!r}: "
-                                  "only akaze is ported")
     if not isinstance(images, torch.Tensor):
         images = torch.from_numpy(np.asarray(images, np.float32))
+    images = images.to(device=device, dtype=torch.float32)
+    if cfg.features.extractor == "sift":
+        from ..kernels import sift
+
+        thr = cfg.features.threshold
+        return sift.detect_and_describe_sift(
+            images, max_keypoints=cfg.features.max_keypoints,
+            # the AKAZE det-Hessian default is meaningless for |DoG|
+            threshold=(0.015 if thr < 1e-4 else thr),
+            oriented=cfg.features.oriented, n_octaves=cfg.features.n_octaves)
     sscfg = features.ScaleSpaceConfig(sigma_levels=tuple(cfg.features.sigma_levels))
     return features.detect_and_describe(
-        images.to(device=device, dtype=torch.float32), sscfg,
+        images, sscfg,
         max_keypoints=cfg.features.max_keypoints,
         threshold=cfg.features.threshold,
         oriented=cfg.features.oriented,
@@ -42,6 +50,48 @@ def _extract_raw(images, cfg: PipelineConfig, device) -> features.Features:
 # The reference's extract_features adds only a log scope around _extract_raw
 # (the map-build front end logs its extraction itself: build_front_end).
 extract_features = _extract_raw
+
+
+def extract_features_streaming(paths, cfg: PipelineConfig, device, *, chunk: int = 16,
+                               workers: int = 8, resize_to=(640, 480)):
+    """Pipelined decode and extraction: host threads decode chunk i+1
+    (``ingest.iter_decoded_chunks``) while the card extracts chunk i.
+
+    Nothing inside the loop waits for the card: each chunk's copy to the
+    card leaves from pinned memory, and extraction (``_extract_raw``) reads
+    nothing back.  The chunks' features are joined by one ``torch.cat`` at
+    the end, which equals eager ``extract_features`` on the same images
+    (extraction is per image).  Host memory stays O(chunk).
+    Returns ``(feats, orig_sizes (N,2) int32)``.
+    """
+    import time
+
+    from . import ingest
+
+    device = torch.device(device)
+    outs, sizes = [], []
+    with LOGGER.scope("extract_stream", chunk=chunk, extractor=cfg.features.extractor) as log:
+        t_loop = time.perf_counter()
+        for imgs, orig in ingest.iter_decoded_chunks(paths, resize_to=resize_to, chunk=chunk,
+                                                     workers=workers):
+            batch = torch.from_numpy(imgs)
+            if device.type == "cuda":  # an asynchronous copy needs pinned memory
+                batch = batch.pin_memory().to(device, non_blocking=True)
+            outs.append(_extract_raw(batch, cfg, device))
+            sizes.append(orig)
+        log["loop_s"] = round(time.perf_counter() - t_loop, 4)
+        if not outs:
+            raise ValueError("extract_features_streaming: no images decoded "
+                             "(empty or unreadable path list)")
+        t_cat = time.perf_counter()
+        kp = features.Keypoints(*(torch.cat(xs) for xs in zip(*(o.kp for o in outs))))
+        feats = features.Features(kp, torch.cat([o.desc for o in outs]),
+                                  torch.cat([o.desc_bits for o in outs]))
+        log["n_images"] = int(feats.desc.shape[0])
+        log["keypoints"] = int(feats.kp.mask.sum())
+        # loop_s ~ decode + queued extraction; concat_s ~ the drain + one cat
+        log["concat_s"] = round(time.perf_counter() - t_cat, 4)
+    return feats, np.concatenate(sizes)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,12 @@ refinement and radius suppression, then upright patch descriptors.  Every
 image yields exactly K keypoint slots with a validity mask.
 
 The heavy stages run through the CUDA kernels K1 (diffusion), K2 (response)
-and K3 (descriptor) via ``scale_space`` and ``describe``; the functions here
-are also those kernels' plain versions' building blocks.  The oriented mode
-(``_orientation``/``describe``) is not ported yet.
+and K3 (upright descriptor) via ``scale_space`` and ``describe``; the
+functions here are also those kernels' plain versions' building blocks.
+The oriented mode (``oriented=True``) takes each keypoint's gradient-centroid
+angle (``_orientation``) and samples its patch on the rotated grid
+(``describe``): plain PyTorch gathers after K1 and K2, as in the reference,
+which has no Pallas kernel for it either.
 """
 from __future__ import annotations
 
@@ -243,10 +246,10 @@ def _maxpool3x3(x: torch.Tensor) -> torch.Tensor:
 
 def detect(levels: torch.Tensor, resp: torch.Tensor, cfg: ScaleSpaceConfig, *,
            max_keypoints: int = 512, threshold: float = 1e-5,
-           border: int = 10) -> Keypoints:
-    """Upright detection: 3x3x3 NMS, block top-K, subpixel refine, radius
-    suppression.  ``levels`` is unused in upright mode (kept for parity of
-    the signature with the reference's oriented path)."""
+           border: int = 10, with_orientation: bool = True) -> Keypoints:
+    """3x3x3 NMS, block top-K, subpixel refine, radius suppression; with
+    ``with_orientation`` each keypoint's angle from ``_orientation`` on its
+    level of ``levels``, else 0 (upright mode, gravity-aligned rigs)."""
     B, L, H, W = resp.shape
     dev = resp.device
     neg = torch.tensor(-torch.inf, device=dev)
@@ -322,9 +325,80 @@ def detect(levels: torch.Tensor, resp: torch.Tensor, cfg: ScaleSpaceConfig, *,
     mask = mask & ~dup
 
     sigma = torch.as_tensor(cfg.sigmas, device=dev)[lvl]
-    return Keypoints(uv=uv, level=lvl, sigma=sigma, angle=torch.zeros_like(sigma),
+    angle = (_orientation(levels, lvl, iy, ix, sigma) if with_orientation
+             else torch.zeros_like(sigma))
+    return Keypoints(uv=uv, level=lvl, sigma=sigma, angle=angle,
                      response=torch.where(mask, vals, torch.zeros_like(vals)),
                      mask=mask)
+
+
+# Samples of one gather chunk: the oriented paths gather (B, k, S) bilinear
+# corners a chunk of k keypoints at a time, so their int64 indices and float
+# intermediates stay near 100 MB (B=16, K=1024, a 24x24 patch is ~9.4 M
+# samples, ~0.8 GB in one piece).
+GATHER_SAMPLES = 1 << 22
+
+
+def _grid(n: int) -> torch.Tensor:
+    """linspace(-0.5, 0.5, n) in float32 (rounded once from float64)."""
+    return torch.from_numpy(np.linspace(-0.5, 0.5, n).astype(np.float32))
+
+
+def _bilinear(levels: torch.Tensor, lvl: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of each keypoint's level: levels (B,L,H,W), lvl
+    (B,k), x and y (B,k,S) pixel coordinates, clamped into the image as the
+    reference clamps them -> (B,k,S)."""
+    B, L, H, W = levels.shape
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    base = ((lvl[..., None] * H + y0.long()) * W + x0.long()).reshape(B, -1)
+    flat = levels.reshape(B, L * H * W)
+
+    def at(off: int) -> torch.Tensor:
+        return torch.gather(flat, 1, base + off).reshape(x.shape)
+
+    return (at(0) * (1 - fx) * (1 - fy) + at(1) * fx * (1 - fy)
+            + at(W) * (1 - fx) * fy + at(W + 1) * fx * fy)
+
+
+def _kp_chunks(K: int, B: int, S: int):
+    """Keypoint slices of a gather over (B, K, S) samples."""
+    step = max(1, GATHER_SAMPLES // max(1, B * S))
+    return [slice(k, min(k + step, K)) for k in range(0, K, step)]
+
+
+def _orientation(levels: torch.Tensor, lvl, iy, ix, sigma, grid_n: int = 13,
+                 support_sigmas: float = 9.0) -> torch.Tensor:
+    """Gradient-centroid orientation from a sigma-scaled sampling window.
+
+    Samples a grid_n x grid_n grid spanning +-support_sigmas/2 * sigma around
+    each keypoint's integer position (bilinear, on its level), weights the
+    window's central-difference gradients by a Gaussian and takes atan2 of
+    their sum.  levels (B,L,H,W); lvl, iy, ix, sigma (B,K) -> angles (B,K).
+    """
+    B, K = lvl.shape
+    dev = levels.device
+    g = _grid(grid_n).to(dev)
+    gyy, gxx = torch.meshgrid(g, g, indexing="ij")
+    wgt = torch.exp(-0.5 * ((gxx ** 2 + gyy ** 2) / 0.16))
+    out = []
+    for sl in _kp_chunks(K, B, grid_n * grid_n):
+        span = (support_sigmas * sigma[:, sl])[..., None, None]
+        x = ix[:, sl, None, None].to(torch.float32) + gxx * span
+        y = iy[:, sl, None, None].to(torch.float32) + gyy * span
+        w_img = _bilinear(levels, lvl[:, sl], x.flatten(2), y.flatten(2))
+        w_img = w_img.reshape(*x.shape)
+        gx = torch.gradient(w_img, dim=-1)[0]
+        gy = torch.gradient(w_img, dim=-2)[0]
+        sx = torch.sum(gx * wgt, dim=(-2, -1))
+        sy = torch.sum(gy * wgt, dim=(-2, -1))
+        out.append(torch.atan2(sy, sx))
+    return torch.cat(out, dim=1) if out else torch.zeros_like(sigma)
 
 
 # ---------------------------------------------------------------------------
@@ -337,14 +411,63 @@ N_WORDS = (N_BITS + 31) // 32                       # 16 32-bit words
 _PATCH = 24  # samples per side of the canonical patch
 
 
+def describe_cells(levels: torch.Tensor, kp: Keypoints) -> torch.Tensor:
+    """Raw 87 cell features of every keypoint on its rotated patch.
+
+    The canonical 24x24 grid spans 20 sigma, rotated by the keypoint's
+    angle and sampled bilinearly on its level; gradients are finite
+    differences along the patch's own axes (the rotated frame), and the
+    cells are the means of (value, dx, dy) over the 2x2, 3x3 and 4x4 grids
+    in the reference's layout.  (B,L,H,W), Keypoints (B,K) -> (B,K,87).
+    """
+    B, K = kp.level.shape
+    dev = levels.device
+    g = _grid(_PATCH).to(dev)
+    gy, gx = torch.meshgrid(g, g, indexing="ij")          # canonical grid
+    gx, gy = gx.reshape(-1), gy.reshape(-1)               # (P2,)
+    out = []
+    for sl in _kp_chunks(K, B, _PATCH * _PATCH):
+        ps = (20.0 * kp.sigma[:, sl])[..., None]          # patch spans ~20 sigma
+        ca = torch.cos(kp.angle[:, sl])[..., None]
+        sa = torch.sin(kp.angle[:, sl])[..., None]
+        px, py = gx * ps, gy * ps
+        x = px * ca - py * sa + kp.uv[:, sl, 0:1]
+        y = px * sa + py * ca + kp.uv[:, sl, 1:2]
+        vals = _bilinear(levels, kp.level[:, sl], x, y).reshape(B, -1, _PATCH, _PATCH)
+        dxr = torch.gradient(vals, dim=-1)[0]
+        dyr = torch.gradient(vals, dim=-2)[0]
+        cells = []
+        for gdim in _GRIDS:
+            cs = _PATCH // gdim
+            for ch in (vals, dxr, dyr):
+                m = ch[..., :gdim * cs, :gdim * cs].reshape(B, -1, gdim, cs, gdim, cs)
+                cells.append(m.mean(dim=(3, 5)).flatten(2))
+        out.append(torch.cat(cells, dim=-1))
+    return torch.cat(out, dim=1)
+
+
+def describe(levels: torch.Tensor, kp: Keypoints):
+    """Oriented descriptors of all keypoints: (desc_float (B,K,128) f32
+    L2-normalized, desc_bits (B,K,N_WORDS) int32 words)."""
+    from . import describe as dsc
+
+    raw = describe_cells(levels, kp)
+    return dsc.finalize_float(raw, kp.mask), dsc.finalize_bits(raw, kp.mask)
+
+
 def _extract_octave(images: torch.Tensor, cfg: ScaleSpaceConfig,
-                    max_keypoints: int, threshold: float) -> Features:
-    """Single-octave upright extraction through K1/K2 and K3."""
+                    max_keypoints: int, threshold: float, oriented: bool) -> Features:
+    """Single-octave extraction through K1/K2, then K3 (upright) or the
+    rotated-patch gathers (oriented)."""
     from . import describe as dsc
     from . import scale_space as ss
 
     levels, resp = ss.build_scale_space_and_response(images, cfg)
-    kp = detect(levels, resp, cfg, max_keypoints=max_keypoints, threshold=threshold)
+    kp = detect(levels, resp, cfg, max_keypoints=max_keypoints, threshold=threshold,
+                with_orientation=oriented)
+    if oriented:
+        desc_float, desc_bits = describe(levels, kp)
+        return Features(kp=kp, desc=desc_float, desc_bits=desc_bits)
     raw = dsc.describe_upright(levels, kp.uv, kp.level, kp.sigma, kp.mask)
     return Features(kp=kp, desc=dsc.finalize_float(raw, kp.mask),
                     desc_bits=dsc.finalize_bits(raw, kp.mask))
@@ -362,21 +485,21 @@ def detect_and_describe(images: torch.Tensor, cfg: ScaleSpaceConfig = ScaleSpace
                         oriented: bool = False, n_octaves: int = 1) -> Features:
     """Full extraction: (B,H,W) f32 in [0,1] -> Features with static K capacity.
 
-    n_octaves > 1 adds 2x-downsampled octaves whose keypoints merge into one
-    full-resolution set (kp.level encodes octave * n_levels + level).
+    oriented=False (default): upright descriptors through K3, the mode for
+    gravity-aligned rigs.  oriented=True: rotation-invariant descriptors
+    (dominant orientation + rotated patch sampling).  n_octaves > 1 adds
+    2x-downsampled octaves whose keypoints merge into one full-resolution
+    set (kp.level encodes octave * n_levels + level).
     """
-    if oriented:
-        raise NotImplementedError("oriented descriptors are not ported yet; "
-                                  "use the upright mode")
     if n_octaves <= 1:
-        return _extract_octave(images, cfg, max_keypoints, threshold)
+        return _extract_octave(images, cfg, max_keypoints, threshold, oriented)
     parts = []
     img_o = images
     for o in range(n_octaves):
         if o:
             img_o = _downsample2(img_o)
         k_o = max(64, max_keypoints >> o)
-        parts.append(_extract_octave(img_o, cfg, k_o, threshold))
+        parts.append(_extract_octave(img_o, cfg, k_o, threshold, oriented))
     return merge_octave_features(parts, cfg.n_levels, max_keypoints)
 
 

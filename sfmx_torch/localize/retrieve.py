@@ -1,7 +1,8 @@
-"""Image retrieval: k-means vocabulary + VLAD global descriptors
-(port of ``sfmx.localize.retrieve``)."""
+"""Image retrieval: k-means vocabulary + VLAD global descriptors, and the
+retrieval-quality metrics (port of ``sfmx.localize.retrieve``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,3 +51,66 @@ def vlad_encode(desc: torch.Tensor, mask: torch.Tensor, vocab: torch.Tensor) -> 
     resid = resid / torch.clamp(torch.linalg.vector_norm(resid, dim=-1, keepdim=True), min=1e-8)
     v = resid.reshape(*resid.shape[:-2], V * D)
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-8)
+
+
+def retrieval_scores(kf_vlad: torch.Tensor, q_vlad: torch.Tensor) -> torch.Tensor:
+    """(C,VD) x (VD,) -> (C,) cosine scores (one GEMV)."""
+    return kf_vlad @ q_vlad
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _scores_and_distances(kf_gdesc, kf_centers, kf_alive, q_gdesc, q_centers):
+    """Host (Q,C) retrieval scores and query-to-keyframe distances, dead
+    keyframes at -inf and inf."""
+    alive = _host(kf_alive).astype(bool)
+    kfc, qc = _host(kf_centers), _host(q_centers)
+    scores = _host(q_gdesc) @ _host(kf_gdesc).T
+    scores[:, ~alive] = -np.inf
+    d = np.sqrt(np.sum((qc[:, None] - kfc[None]) ** 2, -1))
+    d[:, ~alive] = np.inf
+    return scores, d, alive, kfc
+
+
+def recall_at_k(kf_gdesc, kf_centers, kf_alive, q_gdesc, q_centers, k: int = 8,
+                radius: float | None = None) -> float:
+    """Retrieval quality: fraction of queries for which the top-k retrieval
+    surfaces a keyframe whose center lies within ``radius`` of the query's
+    true position.  None sizes the radius per query to max(3x the nearest
+    keyframe's distance, 4x the median keyframe spacing): on densely sampled
+    walks many keyframes see the same spot, and any of them serves 2D-3D
+    matching.  Host numpy; tensors on any device or arrays."""
+    scores, d, alive, kfc = _scores_and_distances(kf_gdesc, kf_centers, kf_alive, q_gdesc,
+                                                  q_centers)
+    if radius is None:
+        ai = np.flatnonzero(alive)
+        if len(ai) > 4096:  # spacing estimate from a subsample (O(n^2) memory)
+            ai = ai[:: len(ai) // 4096 + 1]
+        if len(ai) > 1:
+            kd = np.sqrt(np.sum((kfc[ai][:, None] - kfc[ai][None]) ** 2, -1))
+            np.fill_diagonal(kd, np.inf)
+            spacing = float(np.median(kd.min(axis=1)))
+        else:
+            spacing = 0.0
+        radius = np.maximum(3.0 * d.min(axis=1), 4.0 * spacing)  # (Q,)
+    kk = min(k, int(alive.sum()))
+    topk = np.argpartition(-scores, kk - 1, axis=1)[:, :kk]
+    d_top = np.take_along_axis(d, topk, axis=1)          # (Q,kk)
+    hit = (d_top <= np.asarray(radius).reshape(-1, 1)
+           if np.ndim(radius) else d_top <= radius).any(axis=1)
+    return float(hit.mean())
+
+
+def strict_recall_at_k(kf_gdesc, kf_centers, kf_alive, q_gdesc, q_centers,
+                       k: int = 8) -> float:
+    """Strict recall: fraction of queries whose single spatially nearest
+    alive keyframe appears in the retrieval top-k (near chance on densely
+    sampled walks by construction; telling on visually diverse maps)."""
+    scores, d, alive, _ = _scores_and_distances(kf_gdesc, kf_centers, kf_alive, q_gdesc,
+                                                q_centers)
+    nearest = d.argmin(axis=1)                           # (Q,)
+    kk = min(k, int(alive.sum()))
+    topk = np.argpartition(-scores, kk - 1, axis=1)[:, :kk]
+    return float((topk == nearest[:, None]).any(axis=1).mean())

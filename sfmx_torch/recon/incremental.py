@@ -772,7 +772,10 @@ def reconstruct(
         cam_R, cam_t, X = R2.cpu().numpy(), t2.cpu().numpy(), X2.cpu().numpy()
         intr = intr2.cpu().numpy()
         stats["refined_intrinsics"] = intr.tolist()
-        stats["intrinsics_ba_costs"] = [float(costs[0]), float(costs[-1])]
+        # costs[i+1] is iteration i's best trial, taken or not (a non-finite
+        # trial is never taken); the state's cost is the least finite entry
+        stats["intrinsics_ba_costs"] = [float(costs[0]),
+                                        float(costs[torch.isfinite(costs)].min())]
 
     scene = new_scene(C, T, O, intr, cam_k=cam_k, device=device)
     scene = dataclasses.replace(

@@ -105,7 +105,7 @@ class LocalizationService:
         if shards > 1:
             raise NotImplementedError(
                 "shards > 1 splits a map across devices: multi-GPU serving is "
-                "ROADMAP queue 12 (serve/router.py)")
+                "ROADMAP queue 1 item 10 (serve/router.py)")
         if cfg is None:
             from ..cli.config import PipelineConfig
 

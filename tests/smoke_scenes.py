@@ -16,7 +16,10 @@
   like the rooms of one building;
 - the synthetic map and query of ``bench.py``'s gather-path tripwire;
 - the reference's stalling two-cluster scene at a build's size
-  (``two_cluster_world``), for secondary components.
+  (``two_cluster_world``), for secondary components;
+- the rotated blob-texture pair of tests/test_features.py
+  (``blob_texture``, ``warp_affine``) and a PIL-like bilinear downscale
+  (``resize_bilinear``), for the extractors' gates where PIL is missing.
 """
 from __future__ import annotations
 
@@ -312,3 +315,73 @@ def two_cluster_world(n_per_arc: int = 48, n_cluster: int = 3000, n_shared: int 
         feat_pt[c, :n] = ids
     centers = np.einsum("cji,cj->ci", Rs, -ts)
     return uv, desc, mask, intr, centers, feat_pt
+
+
+def blob_texture(rng, h: int = 160, w: int = 160) -> np.ndarray:
+    """Smooth random texture with strong corners (a sum of 40 Gaussian
+    blobs) in [0,1]: tests/test_features.py's ``make_texture``."""
+    img = np.zeros((h, w), np.float32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for _ in range(40):
+        cy, cx = rng.uniform(20, h - 20), rng.uniform(20, w - 20)
+        s = rng.uniform(2.0, 6.0)
+        a = rng.uniform(0.3, 1.0) * rng.choice([-1, 1])
+        img += a * np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * s * s))
+    img -= img.min()
+    img /= img.max()
+    return img
+
+
+def warp_affine(img: np.ndarray, M: np.ndarray) -> np.ndarray:
+    """Inverse warp by the 2x3 affine M with bilinear sampling."""
+    h, w = img.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    pts = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w, np.float32)])
+    src = np.linalg.inv(np.vstack([M, [0, 0, 1]]))[:2] @ pts
+    sx = np.clip(src[0], 0, w - 1.001)
+    sy = np.clip(src[1], 0, h - 1.001)
+    x0, y0 = sx.astype(int), sy.astype(int)
+    fx, fy = sx - x0, sy - y0
+    out = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+           + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+    return out.reshape(h, w).astype(np.float32)
+
+
+def rotated_pair(seed: int = 5, deg: float = 25.0):
+    """tests/test_features.py's pair: a 160x160 blob texture and its copy
+    rotated by ``deg`` about the center and shifted by (6, -4) px.
+    Returns ((2,H,W) float32, the 2x3 affine)."""
+    img = blob_texture(np.random.default_rng(seed))
+    h, w = img.shape
+    c, s = np.cos(np.deg2rad(deg)), np.sin(np.deg2rad(deg))
+    cx, cy = w / 2, h / 2
+    M = np.array([[c, -s, cx - c * cx + s * cy + 6.0], [s, c, cy - s * cx - c * cy - 4.0]])
+    return np.stack([img, warp_affine(img, M)]).astype(np.float32), M
+
+
+def _resample_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) triangle-filter weights widened by the scale factor,
+    as PIL's BILINEAR resample builds them."""
+    scale = n_in / n_out
+    support = max(scale, 1.0)
+    wm = np.zeros((n_out, n_in))
+    for i in range(n_out):
+        center = (i + 0.5) * scale
+        lo, hi = max(int(center - support + 0.5), 0), min(int(center + support + 0.5), n_in)
+        x = np.arange(lo, hi)
+        wt = np.clip(1.0 - np.abs((x - center + 0.5) / support), 0.0, None)
+        wm[i, lo:hi] = wt / wt.sum()
+    return wm
+
+
+def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """A [0,1] gray image resized to size=(w,h) like
+    ``PIL.Image.fromarray(uint8).resize(size, BILINEAR)``: quantized to
+    uint8, filtered horizontally then vertically, each pass rounded to
+    uint8; returns float32 in [0,1]."""
+    h_in, w_in = img.shape
+    u8 = (img * 255).astype(np.uint8).astype(np.float64)
+    rnd = lambda a: np.clip(np.floor(a + 0.5), 0, 255)
+    out = rnd(u8 @ _resample_weights(w_in, size[0]).T)
+    out = rnd(_resample_weights(h_in, size[1]) @ out)
+    return out.astype(np.float32) / 255.0

@@ -719,3 +719,64 @@ def test_ba_solve_on_card_matches_cpu(cuda, path):
     assert float(cc[-1]) < 0.2 * float(cc[0])
     for a, b in zip(out[:3], ref[:3]):
         assert float((a.cpu() - b).abs().max()) < 2e-2
+
+
+def _textured(B=2, H=160, W=200, seed=5):
+    """Smooth blob textures (random Gaussian blobs), (B,H,W) in [0,1]."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:H, 0:W]
+    out = np.zeros((B, H, W), np.float32)
+    for b in range(B):
+        for _ in range(60):
+            cy, cx, s = rng.uniform(15, H - 15), rng.uniform(15, W - 15), rng.uniform(2, 6)
+            out[b] += rng.uniform(0.3, 1.0) * rng.choice([-1, 1]) * np.exp(
+                -((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * s * s))
+        out[b] = (out[b] - out[b].min()) / (out[b].max() - out[b].min())
+    return torch.from_numpy(out)
+
+
+def _agreeing_share(got, ref, tol_px=0.01, tol_rad=1e-3, tol_desc=1e-3):
+    """Share of the reference's valid keypoints with a card keypoint within
+    tol_px whose angle is within tol_rad (mod 2 pi), and the largest
+    descriptor difference over those."""
+    shares, worst = [], 0.0
+    for b in range(ref.kp.mask.shape[0]):
+        rm, gm = ref.kp.mask[b], got.kp.mask[b].cpu()
+        d = torch.cdist(ref.kp.uv[b][rm].double(), got.kp.uv[b].cpu()[gm].double())
+        dmin, j = d.min(dim=1)
+        da = torch.remainder(ref.kp.angle[b][rm] - got.kp.angle[b].cpu()[gm][j] + np.pi,
+                             2 * np.pi) - np.pi
+        good = (dmin < tol_px) & (da.abs() < tol_rad)
+        shares.append(float(good.double().mean()))
+        dd = (ref.desc[b][rm] - got.desc[b].cpu()[gm][j]).abs().amax(dim=1)[good]
+        worst = max(worst, float(dd.max()) if len(dd) else 0.0)
+    return min(shares), worst
+
+
+@pytest.mark.parametrize("n_octaves", [1, 2])
+def test_oriented_extraction_on_card_matches_cpu(cuda, n_octaves):
+    """Oriented extraction: K1/K2 then the rotated-patch gathers on the
+    card against the plain path on the CPU from the same images: >= 95 % of
+    the CPU's keypoints within 0.01 px and 1e-3 rad, their descriptors
+    within 1e-3 (K1 differs from its plain version by up to 1e-5, which can
+    move a keypoint's subpixel fit or NMS)."""
+    img = _textured()
+    ref = F.detect_and_describe(img, max_keypoints=256, threshold=1e-7, oriented=True,
+                                n_octaves=n_octaves)
+    got = F.detect_and_describe(img.to(cuda), max_keypoints=256, threshold=1e-7,
+                                oriented=True, n_octaves=n_octaves)
+    share, worst = _agreeing_share(got, ref)
+    assert share >= 0.95 and worst < 1e-3, (share, worst)
+
+
+def test_sift_extraction_on_card_matches_cpu(cuda):
+    """SIFT (plain torch, cuDNN's blur on the card): the same share and
+    tolerances against the CPU from the same images."""
+    from sfmx_torch.kernels import sift
+
+    img = _textured(seed=6)
+    ref = sift.detect_and_describe_sift(img, max_keypoints=256, n_octaves=2, oriented=True)
+    got = sift.detect_and_describe_sift(img.to(cuda), max_keypoints=256, n_octaves=2,
+                                        oriented=True)
+    share, worst = _agreeing_share(got, ref)
+    assert share >= 0.95 and worst < 1e-3, (share, worst)

@@ -228,3 +228,37 @@ def test_reconstruct_with_intrinsics_refinement():
     assert abs(f_ref - sc.intrinsics[0]) / sc.intrinsics[0] < 0.03
     assert abs(f_est / f_ref - 1.0) < 0.01
     assert jstats["n_registered"] == stats["n_registered"] == C
+
+
+def test_reconstruct_reports_the_joint_lm_final_cost(monkeypatch):
+    """stats["intrinsics_ba_costs"] is (the joint LM's first cost, the cost
+    of the state it returns): a last trial that came out non-finite, and so
+    was not taken, does not make the second NaN (seen on the card)."""
+    from sfmx_torch.solvers import lm as tlm
+
+    rng = np.random.default_rng(3)
+    sc = make_scene(n_cams=8, n_points=200, noise_px=0.3, seed=11)
+    uv, desc, mask, _ = scene_features(sc, rng, noise=0.05)
+    C = uv.shape[0]
+    pairs = np.array([(a, b) for a in range(C) for b in range(a + 1, C)], np.int32)
+    res = jmatching.match_pairs_float(jnp.asarray(desc), jnp.asarray(mask), jnp.asarray(pairs))
+    jtt = jtracks.build_tracks(pairs, np.asarray(res.idx), np.asarray(res.valid), C, uv.shape[1])
+    tt = TrackTable(jtt.obs_cam, jtt.obs_feat, jtt.obs_track, jtt.n_tracks)
+    guess = sc.intrinsics.copy()
+    guess[:2] *= 1.05
+    traces = []
+    real = tlm.ba_solve_intrinsics
+
+    def with_nan_trial(*a, **kw):
+        R, t, X, intr, costs = real(*a, **kw)
+        traces.append(costs)
+        return R, t, X, intr, torch.cat([costs, costs.new_tensor([float("nan")])])
+
+    monkeypatch.setattr(tlm, "ba_solve_intrinsics", with_nan_trial)
+    _scene, stats = tinc.reconstruct(uv, mask, tt, guess[None].astype(np.float32),
+                                     np.zeros(C, np.int32),
+                                     tinc.ReconConfig(refine_intrinsics=("f",)), device="cpu")
+    assert len(traces) == 1
+    c0, c1 = stats["intrinsics_ba_costs"]
+    assert c0 == float(traces[0][0]) and c1 == float(traces[0].min())
+    assert np.isfinite(c1) and c1 <= c0

@@ -209,7 +209,7 @@ def test_service_binary_group_and_errors(room_map):
     svc = LocalizationService(batch_window_ms=100.0, max_batch=8)
     svc.load_map("room", bmap, INTR, cfg=_pcfg(PipelineConfig, FeatureConfig, LocalizeConfig,
                                                "off"))
-    with pytest.raises(NotImplementedError, match="queue 12"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         svc.load_map("room2", bmap, INTR, shards=2)
     svc.warmup("room")
     assert svc.stats.requests == 0
