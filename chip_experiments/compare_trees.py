@@ -6,6 +6,7 @@ card, in turns inside one run, so that the two can be compared (the wall and
 the clocks differ between runs, and between cards).
 
     python3 chip_experiments/compare_trees.py PARENT_ROOT [CHANGE_ROOT] [--kernels K5,K7]
+    python3 chip_experiments/compare_trees.py PARENT_ROOT --kernels BA
 
 Each root is a directory that holds a ``sfmx_torch`` package (for the parent,
 e.g. ``git archive <commit> sfmx_torch | tar -x -C <dir>``); CHANGE_ROOT
@@ -44,6 +45,14 @@ them, with how many launches the trace kept (``traced``): a trace of a short
 kernel called back to back drops launches.  A call that cannot be captured
 into a CUDA graph (the matchers copy their pair lists from the host) is not
 captured: its ``graph_ms`` is null.  ``--kernels`` picks a subset (default K4,K2,K3,K8).
+
+``BA`` (no kernel: the planes path's sums) times each tree's ``ba_solve`` on
+the planes path at ba-512 (10 LM iterations x 30 CG steps; LM iterations/s
+of the median of 3 synchronized solves after a warm one) and the 96-frame
+build (the walk's first 96 frames rendered once by this tree and read by
+every measuring process; ``build_map`` once to warm, then twice:
+``stats["ba_total_s"]``, its LM iterations/s and the reconstruct wall), and
+whether the two timed builds' scenes are bit-identical.
 """
 from __future__ import annotations
 
@@ -325,7 +334,73 @@ def measure(root: str, tag: str, kernels: set[str], served: Path) -> None:
                     sg.ba_assemble_fused(cam19, dense, uvw, x3, 0.008)
 
             out[f"K7 {name} O={int(dense.cnt.sum())}"] = timings(k7, reps=21)
+    if "BA" in kernels:
+        out.update(ba_walls(dev, served.parent / "walk96.npy"))
     print(json.dumps(out), flush=True)
+
+
+def ba_walls(dev, frames_path: Path) -> dict:
+    """The planes path's LM rate at ba-512 and the 96-frame build's BA wall
+    of the tree on the path."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import build_map
+    from sfmx_torch.solvers import lm
+    from tests.smoke_scenes import ba_problem
+
+    out = {}
+    prob = {k: torch.as_tensor(v, device=dev) for k, v in
+            ba_problem(512, 20000, 200000, seed=0, window=16, perturb=0.03).items()}
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = lm.ba_solve(*prob.values(), iters=10, cg_iters=30)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    solve()
+    walls = [solve()[1] for _ in range(3)]
+    out["planes ba-512"] = {"lm_iters_per_s": [round(10 / w, 3) for w in walls],
+                            "median_lm_iters_per_s": round(10 / float(np.median(walls)), 3)}
+    frames = np.load(frames_path)
+    intr = np.array([[560.0, 560.0, 320.0, 240.0, 0, 0, 0]], np.float32)
+    n = len(frames)
+
+    def build():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene, _f, _tt, stats = build_map(frames, intr, np.zeros(n, np.int32), PipelineConfig(),
+                                          dev, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        arrays = {f.name: getattr(scene, f.name).cpu() for f in dataclasses.fields(scene)
+                  if isinstance(getattr(scene, f.name), torch.Tensor)}
+        return arrays, stats, time.perf_counter() - t0
+
+    build()
+    runs = [build() for _ in range(2)]
+    out["build96"] = {
+        "ba_total_s": [r[1]["ba_total_s"] for r in runs],
+        "ba_iters_per_s": [r[1]["ba_iters_per_s"] for r in runs],
+        "ba_calls": runs[0][1]["ba_calls"], "wall_s": [round(r[2], 3) for r in runs],
+        "bit_identical": all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0])}
+    return out
+
+
+def walk_frames(path: Path) -> None:
+    """The walk's first 96 VGA frames, rendered once for every tree."""
+    import numpy as np
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from tests import smoke_scenes
+
+    poses = smoke_scenes.loop_walk_poses(256)[:96]
+    np.save(path, smoke_scenes.render_parallel(0, poses, 640, 480, 560.0, 8))
 
 
 def main() -> int:
@@ -347,12 +422,17 @@ def main() -> int:
     if "K3" in kernels.split(","):
         served.parent.mkdir(exist_ok=True)
         served_k3_inputs(served)
+    walk = served.parent / "walk96.npy"
+    if "BA" in kernels.split(","):
+        walk.parent.mkdir(exist_ok=True)
+        walk_frames(walk)
     try:
         for tag, root in (("parent", parent), ("change", change), ("change", change),
                           ("parent", parent)):
             subprocess.run([sys.executable, __file__, "--measure", root, tag, kernels], check=True)
     finally:
         served.unlink(missing_ok=True)
+        walk.unlink(missing_ok=True)
     return 0
 
 

@@ -2,8 +2,9 @@
 """Drive the sfmx_torch query-localization, map-scale serving, map-build
 front-end and reconstruction paths (secondary components, the checkpointed
 final BA, the merge of two sessions and self-calibration included), the
-command line end to end, streaming, oriented and SIFT extraction, once on
-one CUDA card.
+command line end to end, streaming, oriented and SIFT extraction, and the
+multi-device paths (routed map shards, map-sharded localization, the
+point-sharded BA and the dry run, on one card), once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 (``python3 chip_smoke.py --tune`` runs instead the sweeps behind K1's tile
@@ -14,7 +15,8 @@ and prints no result lines.)
 
 Phases (each asserts; any failure exits non-zero):
   1. device     — needs torch.cuda; prints the card and its power limit
-  2. build      — compiles the CUDA kernels K1-K10 from sfmx_torch/csrc,
+  2. build      — compiles the CUDA kernels K1-K10 and the fixed-order
+                  segment sum from sfmx_torch/csrc,
                   one nvcc per source, and native/tracks.cpp with g++, all
                   started together
   3. kernels    — K1-K3 against their plain PyTorch versions at the gather
@@ -109,8 +111,15 @@ Phases (each asserts; any failure exits non-zero):
                   repeats this at the build's own shapes, whose numbers go
                   into the kernels line), LM iterations/s of
                   ``ba_solve(dense_cg=True)`` beside the planes path, and
-                  the same dense solve twice (bit-identical or not); with
-                  --profile the solve's device ms and busy share
+                  the same dense solve and the same planes solve twice
+                  (each bit-identical, asserted); with
+                  --profile the solve's device ms and busy share; then the
+                  fixed-order segment sum (``kernels/segment_sum``) on the
+                  problem's camera (O,36) and point (O,9) sums and on one
+                  segment of all O rows (the joint intrinsics' group sum,
+                  two launches) against its plain version (1e-5 of the
+                  largest sum), two calls and a table shuffled within its
+                  segments' order bit-equal, beside ``index_add_``
  18. build_map  — the 96-frame exhaustive build again, now through
                   ``build_map`` to a ``Scene`` (default ``PipelineConfig``,
                   the default ``ReconConfig``: the component loop is entered
@@ -154,7 +163,8 @@ Phases (each asserts; any failure exits non-zero):
                   ``build_map`` and ``merge_scenes``; gates: the edge
                   verified, the joint BA's cost falls (planes path, as the
                   reference's), ATE of the 120 merged centers < 0.1 m; the
-                  path's launches are merge_scenes' (none)
+                  path's launches are merge_scenes' (the segment sums of
+                  its joint BA)
  24. selfcal    — self-calibration from a focal 5 % high with
                   ``refine_intrinsics=("f",)``: the 96 frames through
                   ``build_map`` (gates: 96/96, ATE < 0.1 m, median
@@ -192,9 +202,33 @@ Phases (each asserts; any failure exits non-zero):
                   tests/test_sift.py's gates at its sizes on the card; the 96
                   frames through ``build_map`` with SIFT, printed, ungated
  29. determinism — build-map of the 96 frames a second time with the same
-                  seed: whether stats (timings aside) and every scene and
-                  feature array are bit-identical with phase 25's, which
-                  differ and by how much; both under the build gates
+                  seed: stats (timings aside) and every scene and feature
+                  array bit-identical with phase 25's (asserted; where not,
+                  which differ and by how much is logged first); both under
+                  the build gates
+ 30. serve shards — phase 10's 8 bursts of 66 image requests through
+                  ``LocalizationService.load_map(shards=2)``: the map-scale
+                  map split into two shards, both on cuda:0, each batch's
+                  queries routed by retrieval and localized per shard group
+                  on the gather path; requests/s, latency percentiles, the
+                  serve gates (median < 0.2 m, >= 75 % localized, each
+                  own-intrinsics request < 0.2 m); K1-K3 launched
+ 31. sharded    — one B=32 VGA batch (32,768 query rows) against the
+                  map-scale map split into 2 and into 4 landmark shards on
+                  cuda:0: each shard's K4 and the merge in shard order equal
+                  to the unsplit K4 in every field, the poses equal to
+                  ``localize_batch_streaming``'s with the same noise; K4's
+                  device ms per shard launch
+ 32. block BA   — bench/run_configs.py's config 4 (2,048 cameras, 200,000
+                  points, 798,720 observations, 8 LM iterations x 25 CG
+                  steps) through ``ba_solve_blocked`` on one NCCL rank
+                  beside the planes ``ba_solve`` (final costs within 5 %);
+                  the joint-intrinsics block solve; the checkpointed block
+                  solve resumed after its first chunk, bit-identical to the
+                  uninterrupted one
+ 33. dry run    — ``sfmx_torch.dist.dryrun`` in one spawned NCCL rank and in
+                  two gloo ranks sharing cuda:0: every multi-device path,
+                  each result finite; K1-K5 launched in the NCCL run
 The last two lines are the kernel JSON and the device JSON.  K4's entry
 holds the serving batch's shape and, as ``tail_ms``, ``tail_bound_ms`` and
 ``splits``, the burst tail's; ``ms`` times the wrapper on f32 descriptors
@@ -203,10 +237,11 @@ launches alone on bf16 inputs.  Every kernel
 carries ``bound_ms``: the larger of its necessary bytes (inputs read once,
 outputs written once) at 3.35 TB/s and its operations at the card's peak
 for their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), from this
-run's shapes; ``library_ms`` is null throughout: no single PyTorch call
+run's shapes; ``library_ms`` is null for K1-K10: no single PyTorch call
 computes any of these functions (the matchers' plain versions are a matmul
-plus top-k, mask and gather calls; the BA kernels' several gathers, block
-products and ``index_add_`` calls).
+plus top-k, mask and gather calls; the BA kernels' several gathers and
+block products); the segment sum's is ``index_add_``'s (float atomics: the
+same sums, not the same bits from run to run).
 """
 from __future__ import annotations
 
@@ -268,6 +303,8 @@ KERNELS = {
     "schur_cross_matvec": ("sfmx_torch/csrc/ba.cu", "sfmx/kernels/segsum.py:302", 1e-4),
     "ba_assemble_fused": ("sfmx_torch/csrc/ba.cu", "sfmx/kernels/segsum.py:516", 1e-4),
     "ba_cost_fused": ("sfmx_torch/csrc/ba.cu", "sfmx/kernels/segsum.py:587", 1e-4),
+    # not a Pallas kernel: the reference's jax.ops.segment_sum (XLA's scatter-add)
+    "segment_sum": ("sfmx_torch/csrc/segment_sum.cu", "sfmx/solvers/schur.py:76", 1e-5),
 }
 # Tolerances: K1 — the kernel contracts multiply-adds into FMAs and the
 # Perona-Malik steps amplify last-bit differences (levels lie in [0,1]);
@@ -285,6 +322,8 @@ KERNELS = {
 # scale (``rounding_scales``), where f32 against f64 of the plain version
 # gives 3e-10 to 3e-8 on random problems (at the optimum, started off it,
 # with 2 % of the observations 40-400 px out), so ROUND_TOL leaves 300x.
+# The segment sum: errors over the largest sum; f32 sums of up to 200,000
+# terms of unit normals in two orders differ by ~1e-6 of it.
 ROUND_TOL = 1e-5
 
 
@@ -360,7 +399,7 @@ def phase_build():
     from sfmx_torch.recon import _native_tracks
 
     t0 = time.perf_counter()
-    libs = ("scale_space", "describe", "match_top2", "match_pairs", "ba")
+    libs = ("scale_space", "describe", "match_top2", "match_pairs", "ba", "segment_sum")
     # one nvcc per source and the track builder's g++, all together, so no
     # build lands in a measured stage
     with ThreadPoolExecutor(len(libs) + 1) as ex:
@@ -953,8 +992,11 @@ def phase_k4_wrapper(desc, mask, lmap, smi: str, reps: int = 5) -> None:
         + f"); host {host_us:.1f} us per call; on {smi}")
 
 
-def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
-    """Concurrent image requests through the service on the map-scale map.
+def phase_serve(lmap, frames, own_frames, dev, smi: str, shards: int = 1) -> dict:
+    """Concurrent image requests through the service on the map-scale map
+    (phase 10), or (phase 30, ``shards`` > 1) on the same map split into
+    that many shards, every shard on the one card, each batch's queries
+    routed by retrieval and localized per shard group on the gather path.
     Returns the kernel launches of the serving run."""
     import asyncio
 
@@ -970,13 +1012,21 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
 
     cfg = PipelineConfig()
     svc = server.LocalizationService(batch_window_ms=SERVE_WINDOW_MS, max_batch=SERVE_BATCH)
-    svc.load_map("building", lmap, INTR, cfg=cfg)
+    tag = "[serve]" if shards == 1 else "[serve-shards]"
+    svc.load_map("building", lmap, INTR, cfg=cfg, shards=shards)
     t0 = time.perf_counter()
     svc.warmup("building")
-    log(f"[serve] warmup (one batch of {SERVE_BATCH} blank images) {time.perf_counter() - t0:.2f} s")
-    # every batch is one (map, K, non-binary) group on the streaming path,
-    # so each batch is one streaming localize call
-    assert use_streaming(cfg.localize, lmap, binary=False)
+    log(f"{tag} warmup (one batch of {SERVE_BATCH} blank images) {time.perf_counter() - t0:.2f} s")
+    if shards == 1:
+        # every batch is one (map, K, non-binary) group on the streaming
+        # path, so each batch is one streaming localize call
+        assert use_streaming(cfg.localize, lmap, binary=False)
+    else:
+        router = svc.maps["building"][0]
+        assert isinstance(router, server.MapShardRouter) and len(router.shards) == shards
+        log(f"{tag} {shards} shards of {[int(s.X.shape[0]) for s in router.shards]} landmarks "
+            f"and {[int(s.kf_gdesc.shape[0]) for s in router.shards]} keyframes on "
+            f"{[str(d) for d in router.devices]}")
     poses = serve_poses()
     own_intr = np.array([FOCAL_OWN, FOCAL_OWN, W_IMG / 2, H_IMG / 2, 0, 0, 0], np.float32)
     rng = np.random.default_rng(11)
@@ -1030,11 +1080,11 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
     n_loc = sum(o["n_inliers"] >= cfg.localize.min_inliers for o in outs)
     st = svc.stats.snapshot()
     for i in range(0, len(reqs), 8):
-        log(f"[serve] {i:2d}: center error {errs[i]:.4f} m, {outs[i]['n_inliers']} inliers, "
+        log(f"{tag} {i:2d}: center error {errs[i]:.4f} m, {outs[i]['n_inliers']} inliers, "
             f"confidence {outs[i]['confidence']:.3f}, source {outs[i]['source']}")
     own = np.concatenate([errs[b * len(reqs) + N_SERVE:(b + 1) * len(reqs)]
                           for b in range(N_BURSTS)])
-    log(f"[serve] {N_BURSTS} bursts of {len(reqs)} requests "
+    log(f"{tag} {N_BURSTS} bursts of {len(reqs)} requests "
         f"({sum(r.get('prior') is not None for r in reqs)} with a beacon prior, "
         f"{len(own_frames)} with own intrinsics f={FOCAL_OWN:g}: max error {own.max():.4f} m); "
         f"burst walls {', '.join(f'{w:.3f}' for w in walls)} s; {n} requests in "
@@ -1043,19 +1093,25 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str) -> dict:
         f"{st['p50_latency_ms']:.1f} ms, p95 {st['p95_latency_ms']:.1f} ms, p99 "
         f"{st['p99_latency_ms']:.1f} ms; median center error {np.median(errs):.4f} m "
         f"(gate < {MEDIAN_GATE_M}); {n_loc}/{n} localized by vision; on {smi}")
-    log(f"[serve] launches {json.dumps(launches)}; {len(k4_rows)} streaming calls with query rows "
+    log(f"{tag} launches {json.dumps(launches)}; {len(k4_rows)} streaming calls with query rows "
         f"{json.dumps({str(r): k4_rows.count(r) for r in sorted(set(k4_rows))})}, which take "
         f"{k4_expected} K4 launches (a call that splits the landmark loop takes 2)")
     assert np.isfinite(errs).all(), "serve: non-finite pose"
     assert np.median(errs) < MEDIAN_GATE_M, f"serve: median center error {np.median(errs)}"
     assert n_loc >= 0.75 * n, f"serve: only {n_loc}/{n} localized"
     assert st["requests"] == n and st["batches"] < n, st
-    assert len(k4_rows) == st["batches"], (k4_rows, st)
-    assert launches.get("match_top2", 0) == k4_expected, (launches, k4_expected)
+    if shards == 1:
+        assert len(k4_rows) == st["batches"], (k4_rows, st)
+        assert launches.get("match_top2", 0) == k4_expected, (launches, k4_expected)
+    else:
+        assert not k4_rows and all(launches.get(k, 0) > 0 for k in SERVE_KERNELS[:3]), launches
+    # the requests with their own intrinsics (routed per request on phase 30's path)
     assert np.all(own < MEDIAN_GATE_M), f"serve: own-intrinsics requests off by {own}"
     assert all((o["source"] == 0) == (r.get("prior") is None)
                for o, r in zip(outs, reqs_all)), "serve: unexpected fusion sources"
-    return launches
+    return launches, {"requests_per_s": n / sum(walls), "p50_ms": st["p50_latency_ms"],
+                      "p95_ms": st["p95_latency_ms"], "p99_ms": st["p99_latency_ms"],
+                      "median_err_m": float(np.median(errs)), "localized": n_loc / n}
 
 
 def streaming_path(frames, lmap, dev):
@@ -1762,15 +1818,20 @@ def phase_ba_kernels(dev, smi: str, profile: bool) -> None:
     d2, _ = solve(**dkw)
     solve()
     pl, wall_p = solve()
+    pl2, _ = solve()
     same = all(torch.equal(a, b) for a, b in zip(d1, d2))
     diff = max(float((a - b).abs().max()) for a, b in zip(d1, d2))
+    same_p = all(torch.equal(a, b) for a, b in zip(pl, pl2))
+    diff_p = max(float((a - b).abs().max()) for a, b in zip(pl, pl2))
     log(f"[BA solve] {iters} LM iterations x {cg} CG steps, C={C} P={P} O={O}: dense path "
         f"(K6-K8) {iters / wall_d:.2f} LM iterations/s ({wall_d * 1e3:.1f} ms), planes path "
         f"{iters / wall_p:.2f}/s ({wall_p * 1e3:.1f} ms); cost {float(d1[3][0]):.5f} -> "
         f"{float(d1[3][-1]):.5f} (dense), -> {float(pl[3][-1]):.5f} (planes); launches "
         f"{json.dumps(counts)}; on {smi}")
     log(f"[BA solve] the same dense solve twice: bit-identical {same}, largest difference "
-        f"{diff:.3e}")
+        f"{diff:.3e}; the same planes solve twice (fixed-order segment sums): bit-identical "
+        f"{same_p}, largest difference {diff_p:.3e}")
+    assert same and same_p, "a BA solve repeated on one input gave other bits"
     check_launches("BA solve", counts, {"ba_assemble_fused": 2 * iters,
                                         "schur_cross_matvec": 2 * iters * (cg + 2),
                                         "ba_cost_fused": iters + 1})
@@ -1784,6 +1845,68 @@ def phase_ba_kernels(dev, smi: str, profile: bool) -> None:
         log(f"[profile] BA dense solve: device {ms_d:.2f} ms of {wall_d * 1e3:.1f} ms wall (busy "
             f"{ms_d / (wall_d * 1e3):.3f}); " + "; ".join(f"{t:.3f} ms {k[:50]}" for k, t in top)
             + f"; on {smi}")
+
+
+def phase_segment_sum(dev, smi: str) -> dict:
+    """The fixed-order segment sum against its plain version at BA_SHAPE:
+    the camera sum of an (O,36) block (the planes path's U), the point sum
+    of an (O,9) block (V) and one segment of every row (the joint
+    intrinsics' group sum: pieces, then a second launch); two calls, and the
+    table shuffled with each segment's order kept, bit-equal; the kernel
+    beside the plain version and ``index_add_``.  The camera sum's numbers
+    go into the kernels line."""
+    import torch
+
+    from sfmx_torch.kernels import segment_sum as ss
+    from tests.smoke_scenes import ba_problem
+
+    C, P, O = (BA_SHAPE[k] for k in ("C", "P", "O"))
+    prob = ba_problem(C, P, O, seed=0, window=16, perturb=0.03)
+    cam = torch.as_tensor(prob["cam_id"], device=dev).long()
+    pt = torch.as_tensor(prob["pt_id"], device=dev).long()
+    g = torch.Generator(device=dev).manual_seed(3)
+    tol = KERNELS["segment_sum"][2]
+    out = {}
+    for tag, ids, n, k in (("camera", cam, C, 36), ("point", pt, P, 9),
+                           ("one group", torch.zeros_like(cam), 1, 4)):
+        x = torch.randn((ids.shape[0], k), generator=g, device=dev)
+        plan = ss.segment_plan(ids, n)
+        got, ref = ss.segment_sum(x, plan), ss.segment_sum_plain(x, plan)
+        again = ss.segment_sum(x, ss.segment_plan(ids, n))
+        # rows of different segments interleaved otherwise, each segment's order kept
+        key = torch.randperm(n, generator=g, device=dev)[ids] * ids.shape[0] + \
+            torch.arange(ids.shape[0], device=dev)
+        sh = torch.argsort(key)
+        moved = ss.segment_sum(x[sh], ss.segment_plan(ids[sh], n))
+        lib = torch.zeros((n, k), device=dev).index_add_(0, ids, x)
+        torch.cuda.synchronize()
+        abs_err = float((got - ref).abs().max())
+        rel = abs_err / float(ref.abs().max())
+        same = torch.equal(got, again) and torch.equal(got, moved)
+        ms = cuda_ms(lambda: ss.segment_sum(x, plan), reps=21, warm=3)
+        b2b = cuda_ms_per_call(lambda: ss.segment_sum(x, plan))
+        p_ms = cuda_ms(lambda: ss.segment_sum_plain(x, plan), reps=21, warm=3)
+        lib_ms = cuda_ms(lambda: torch.zeros((n, k), device=dev).index_add_(0, ids, x), reps=21,
+                         warm=3)
+        pieces = plan.piece_off.shape[0] - 1
+        log(f"[segment sum] {tag} sum of ({ids.shape[0]},{k}) into {n} segments ({pieces} pieces"
+            f"{', two launches' if plan.seg_piece is not None else ''}): error {rel:.3e} of the "
+            f"largest sum (tol {tol:.0e}), max abs {abs_err:.3e}; index_add_ differs by "
+            f"{float((lib - ref).abs().max()):.3e}; two calls and the shuffled table bit-equal "
+            f"{same}; kernel {ms:.4f} ms by CUDA events around one call, {b2b:.4f} ms per call "
+            f"over 20 back to back; plain (segment_reduce) {p_ms:.4f} ms; index_add_ {lib_ms:.4f} "
+            f"ms; on {smi}")
+        assert rel <= tol, f"segment sum ({tag}): error {rel} over the largest sum"
+        assert same, f"segment sum ({tag}): the same sums gave other bits"
+        if tag == "camera":
+            # necessary work: x, the permutation and the offsets read, the
+            # sums written; one f32 add per term
+            out = {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms, "b2b_ms": b2b,
+                   "plain_ms": p_ms,
+                   **bound(ids.shape[0] * (4 * k + 4) + (n + 1) * 4 + n * k * 4,
+                           float(ids.shape[0] * k), "f32"),
+                   "library_ms": lib_ms}
+    return out
 
 
 def phase_build_map(frames, poses, dev, smi: str, profile: bool):
@@ -2308,7 +2431,8 @@ def phase_merge(frames, poses, dev, smi: str) -> dict:
     ``merge_scenes`` on their scenes, descriptors and obs_feat.  Gates: the
     session edge verified, the joint BA's cost falls, ATE of all merged
     camera centers against the rendered eyes < 0.1 m; the joint BA on the
-    planes path, as in the reference (no K6-K8 launch inside the merge).
+    planes path, as in the reference (no K6-K8 launch inside the merge;
+    its sums launch the segment sum).
     Returns the launches of ``merge_scenes`` alone, counted from 0: the
     session builds are ``build_map`` runs."""
     import torch
@@ -3057,7 +3181,222 @@ def phase_determinism(cli: dict, dev, smi: str) -> dict:
         f"{st2['final_med_px']:.4f} px, ATE {ate2:.4f} m; on {smi}")
     assert st2["n_registered"] == N_BUILD, st2["n_registered"]
     assert st2["final_med_px"] < REPROJ_GATE_PX and ate2 < ATE_GATE_M, (st2["final_med_px"], ate2)
+    assert stats_equal and not diffs, "two builds with one seed differ"
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Multi-device paths on one card (phases 30-33)
+# ---------------------------------------------------------------------------
+
+SHARD_SPLITS = (2, 4)          # phase 31: landmark shards of the map-scale map on cuda:0
+# phase 32: bench/run_configs.py:config4's corridor problem and solver settings
+CONFIG4 = dict(C=2048, P=200_000, obs_per_cam=800_000 // 2048, iters=8, cg_iters=25,
+               ckpt_every=4, k_iters=2)
+BLOCK_RTOL = 0.05              # blocked vs single-device final cost (tests/test_torch_block_ba.py)
+
+
+def phase_sharded(lmap, frames, dev, smi: str) -> tuple[dict, dict]:
+    """Phase 31.  One B=32 VGA batch (its 32,768 query rows) against the
+    map-scale map split into 2 and into 4 landmark shards on cuda:0: each
+    shard's K4 (``sharded.local_top2``) and the merge in shard order
+    (``sharded.merge_shards``) equal to the unsplit K4 in every field, and
+    the poses (``sharded.pose_from_top2`` on the winners' positions from
+    their shards) equal to ``localize_batch_streaming``'s with the same
+    noise.  Returns (the launches of the split runs, counted from 0; K4's
+    device ms per shard launch by split count)."""
+    import torch
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.localize import sharded as sh
+    from sfmx_torch.localize.localize import localize_batch_streaming
+    from sfmx_torch.solvers.ransac import gumbel_noise
+
+    cfg = PipelineConfig()
+    lc = cfg.localize
+    f = extract_features(frames[:SERVE_BATCH], cfg, dev)
+    B, K, D = f.desc.shape
+    q = torch.where(f.kp.mask[..., None], f.desc, 0.0).reshape(B * K, D)
+    pool_of = lambda m: torch.where(m.lm_alive[:, None], m.lm_desc, 0.0)
+    intr = torch.as_tensor(INTR, device=dev)
+    g = gumbel_noise((B, lc.k_hypotheses, K), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    kw = dict(k_hypotheses=lc.k_hypotheses, px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh,
+              min_inliers=lc.min_inliers)
+    # the comparators, outside the counted runs: the unsplit K4, the streaming path
+    ref = sh.local_top2(q, pool_of(lmap))
+    st = localize_batch_streaming(lmap, f.desc, f.kp.uv, f.kp.mask, intr, gumbel=g, **kw)
+    launches, ms = {}, {}
+    for n in SHARD_SPLITS:
+        shards = [sh.shard_localization_map(lmap, r, n, dev) for r in range(n)]
+        pools = [pool_of(m) for m in shards]
+        pl = shards[0].X.shape[0]
+        Xs, alives = torch.stack([m.X for m in shards]), torch.stack([m.lm_alive for m in shards])
+
+        def run():
+            parts = [sh.local_top2(q, pool) for pool in pools]
+            s1, i1, s2 = (torch.stack([pt[j] for pt in parts]) for j in range(3))
+            s1g, ig, s2g = sh.merge_shards(s1, i1, s2, pl)
+            own, row = ig // pl, ig % pl
+            res = sh.pose_from_top2(s1g, s2g, Xs[own, row].reshape(B, K, 3),
+                                    alives[own, row].reshape(B, K), f.kp.uv, f.kp.mask, intr,
+                                    gumbel=g, **kw)
+            return (s1g, ig, s2g), res
+
+        torch.cuda.synchronize()
+        _build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        top, res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        fields = {name: bool(torch.equal(a, b.to(a.dtype)))
+                  for name, a, b in zip(("s1", "i1", "s2"), top, ref)}
+        dc = float(torch.linalg.vector_norm(res.center - st.center, dim=-1).max())
+        same_inl = bool(torch.equal(res.n_inliers, st.n_inliers))
+        per: dict = {}
+        dev_ms, note = launch_device_ms(lambda: sh.local_top2(q, pools[0]), 5,
+                                        keep=lambda k: "match_top2" in k or "merge_splits" in k,
+                                        per=per)
+        ms[n] = dev_ms
+        P = lmap.X.shape[0]
+        log(f"[sharded] B={B} ({B * K} query rows) against {P} landmarks in {n} shards of {pl} on "
+            f"{dev}: {n} shard K4 calls + merge + pose in {wall * 1e3:.1f} ms; launches "
+            f"{json.dumps(got)}; merged fields equal to the unsplit K4 {json.dumps(fields)}; "
+            f"poses against localize_batch_streaming with the same noise: n_inliers equal "
+            f"{same_inl}, centers max {dc:.2e} m apart; K4 device time per shard call "
+            f"{dev_ms:.4f} ms ({note}); on {smi}")
+        assert all(fields.values()), f"sharded K4 + merge differs from the unsplit K4: {fields}"
+        assert same_inl and dc <= 1e-5, f"sharded poses differ from streaming: {dc}"
+        assert got.get("match_top2", 0) >= n, got
+    errs = torch.linalg.vector_norm(res.center.cpu() - torch.as_tensor(
+        np.stack([e for _R, _t, e in serve_poses()[:B]]), dtype=torch.float32), dim=-1)
+    log(f"[sharded] median center error {float(errs.median()):.4f} m over {B} queries")
+    assert float(errs.median()) < MEDIAN_GATE_M, float(errs.median())
+    return launches, ms
+
+
+def block_problem(rng):
+    """bench/run_configs.py:config4's corridor problem: camera c sees a
+    window of 300 points; 0.5 px noise."""
+    C, P = CONFIG4["C"], CONFIG4["P"]
+    O = CONFIG4["obs_per_cam"] * C
+    cam_id = np.repeat(np.arange(C, dtype=np.int32), O // C)
+    lo = (cam_id.astype(np.int64) * (P - 300) // C).astype(np.int32)
+    pt_id = (lo + rng.integers(0, 300, O)).astype(np.int32)
+    X = rng.uniform(-10, 10, (P, 3)).astype(np.float32)
+    t = np.concatenate([rng.uniform(-5, 5, (C, 2)), np.full((C, 1), 20.0)], 1).astype(np.float32)
+    R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    Xc = X[pt_id] + t[cam_id]
+    uv = ((Xc[:, :2] / Xc[:, 2:3]) * 500.0 + np.asarray([320.0, 240.0])
+          + 0.5 * rng.standard_normal((O, 2))).astype(np.float32)
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    intr = np.asarray([[500.0, 500.0, 320.0, 240.0, 0, 0, 0]], np.float32)
+    return (intr, np.zeros(C, np.int32), R, t, X, cam_id, pt_id, uv, np.ones(O, np.float32),
+            fixed)
+
+
+def phase_block_ba(dev, smi: str) -> None:
+    """Phase 32.  Config 4's problem (2,048 cameras, 200,000 points, 798,720
+    observations; 8 LM iterations x 25 CG steps) through ``ba_solve_blocked``
+    on one NCCL rank beside the single-device ``ba_solve`` (planes path) on
+    the same problem, final costs within BLOCK_RTOL; the joint-intrinsics
+    block solve (k_iters iterations); and the checkpointed blocked solve
+    stopped after its first chunk and resumed, bit-identical to the
+    uninterrupted chunked one."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from sfmx_torch.dist import block_ba, mesh
+    from sfmx_torch.solvers import lm
+
+    prob = block_problem(np.random.default_rng(1))
+    C, P, O = prob[2].shape[0], prob[4].shape[0], prob[5].shape[0]
+    it, cg = CONFIG4["iters"], CONFIG4["cg_iters"]
+    (ROOT / ".chip_scratch").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / ".chip_scratch")
+    mesh.init_group("nccl", 0, 1, f"file://{tmp}/store", timeout=300, device=dev)
+    try:
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        T = [torch.as_tensor(a, device=dev) for a in prob]
+        (_, _, _, costs_p), wall_p = timed(lambda: lm.ba_solve(*T, iters=it, cg_iters=cg))
+        costs_p = costs_p.cpu().numpy()
+        (_, _, _, costs_b, stats), wall_b = timed(
+            lambda: block_ba.ba_solve_blocked(*prob, device=dev, iters=it, cg_iters=cg))
+        rel = abs(float(costs_b[-1]) - float(costs_p[-1])) / float(costs_p[-1])
+        log(f"[block BA] config 4: C={C} P={P} O={O}, {it} LM iterations x {cg} CG steps on one "
+            f"NCCL rank: ba_solve_blocked {it / wall_b:.2f} LM iterations/s ({wall_b:.3f} s), "
+            f"cost {float(costs_b[0]):.4f} -> {float(costs_b[-1]):.6f}; single-device planes "
+            f"ba_solve {it / wall_p:.2f}/s ({wall_p:.3f} s) -> {float(costs_p[-1]):.6f}; "
+            f"relative difference {rel:.2e} (gate {BLOCK_RTOL}); layout {json.dumps(stats)}; "
+            f"on {smi}")
+        # config 4 starts at the truth with 0.5 px of noise: the cost falls a little
+        assert np.isfinite(costs_b).all() and costs_b[-1] <= costs_b[0], costs_b
+        assert rel <= BLOCK_RTOL, f"blocked and planes costs differ by {rel}"
+
+        (_, _, _, intr_k, costs_k, _), wall_k = timed(lambda: block_ba.ba_solve_blocked_intrinsics(
+            *prob, device=dev, params=("f",), iters=CONFIG4["k_iters"], cg_iters=cg))
+        log(f"[block BA] joint intrinsics (f), {CONFIG4['k_iters']} LM iterations in "
+            f"{wall_k:.3f} s: cost {float(costs_k[0]):.4f} -> {float(costs_k[-1]):.6f}, focal "
+            f"{float(intr_k[0, 0]):.3f} (truth 500)")
+        assert np.isfinite(costs_k).all() and costs_k[-1] <= costs_k[0], costs_k
+        assert abs(float(intr_k[0, 0]) - 500.0) < 5.0, float(intr_k[0, 0])
+
+        ck = dict(device=dev, cg_iters=cg, ckpt_every=CONFIG4["ckpt_every"])
+        (Ra, ta, Xa, ca, _), wall_a = timed(lambda: block_ba.ba_solve_blocked(
+            *prob, iters=it, ckpt_path=f"{tmp}/a.ckpt.npz", **ck))
+        block_ba.ba_solve_blocked(*prob, iters=CONFIG4["ckpt_every"],
+                                  ckpt_path=f"{tmp}/b.ckpt.npz", **ck)
+        Rb, tb, Xb, cb, _ = block_ba.ba_solve_blocked(*prob, iters=it,
+                                                      ckpt_path=f"{tmp}/b.ckpt.npz", **ck)
+        same = all(torch.equal(x, y) for x, y in ((Ra, Rb), (ta, tb), (Xa, Xb))) \
+            and ca[-1] == cb[-1]
+        log(f"[block BA] checkpointed every {CONFIG4['ckpt_every']} ({wall_a:.3f} s, costs "
+            f"{len(ca)}); stopped after its first chunk and resumed ({len(cb)} costs): "
+            f"bit-identical to the uninterrupted run {same}; uninterrupted unchunked final cost "
+            f"{float(costs_b[-1]):.6f}, chunked {float(ca[-1]):.6f}")
+        assert same and len(ca) == it + 1 and len(cb) == it - CONFIG4["ckpt_every"] + 1
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dryrun(dev, smi: str) -> dict:
+    """Phase 33.  ``sfmx_torch.dist.dryrun`` (every multi-device path once:
+    block BA, joint-intrinsics block BA, the observation-sharded step,
+    data-parallel extraction + matching, map-sharded localization) in a
+    spawned world of one NCCL rank on cuda:0, then of two gloo ranks sharing
+    cuda:0 (this card's gloo takes CUDA tensors for the collectives the port
+    uses: ``chip_experiments/f10_sites.py``).  Returns the NCCL run's
+    launches (rank 0's, counted from 0)."""
+    from sfmx_torch.dist import dryrun, mesh
+
+    out = {}
+    for tag, n, kw in (("nccl", 1, dict(device="cuda")),
+                       ("gloo on cuda:0", 2, dict(device="cuda:0", backend="gloo"))):
+        path = ROOT / ".chip_scratch" / f"dryrun_{n}.json"
+        t0 = time.perf_counter()
+        mesh.spawn(dryrun.dryrun, n, str(path), timeout=120, join_timeout=600, **kw)
+        res = json.loads(path.read_text())
+        log(f"[dryrun] {n} {tag} rank(s): {time.perf_counter() - t0:.1f} s (processes included); "
+            f"block BA costs {res['block_ba']['costs']}, joint {res['block_ba_k']['costs']} "
+            f"(focal {res['block_ba_k']['focal']:.3f}), obs-sharded {res['obs_ba']['costs']}, "
+            f"DP {json.dumps(res['dp'])}, map-sharded t finite; rank 0 launches "
+            f"{json.dumps(res['launches'])}; on {smi}")
+        out[tag] = res
+    return out["nccl"]["launches"]
 
 
 def phase_tune(dev, smi: str) -> None:
@@ -3332,7 +3671,7 @@ def main() -> int:
     kstats = phase_kernels(serve_frames[:SERVE_BATCH], dev, profile)
     phase_kernels(own_frames, dev, profile)
     kstats["match_top2"] = phase_k4(big, serve_frames, dev, smi, profile)
-    serve_launches = phase_serve(big, serve_frames, own_frames, dev, smi)
+    serve_launches, _ = phase_serve(big, serve_frames, own_frames, dev, smi)
     s_extract, s_localize, s_state = streaming_path(serve_frames, big, dev)
     phase_streaming_crosscheck(big, s_state, dev)
     s_wall = phase_rate(s_extract, s_localize, SERVE_BATCH, smi, label="streaming path")
@@ -3344,6 +3683,7 @@ def main() -> int:
     kstats.update(front_stats)
 
     phase_ba_kernels(dev, smi, profile)
+    kstats["segment_sum"] = phase_segment_sum(dev, smi)
     scene, b_feats, b_tt, sim, map_launches, ba_stats, map_stats = phase_build_map(
         build_frames, build_poses, dev, smi, profile)
     kstats.update(ba_stats)
@@ -3365,10 +3705,18 @@ def main() -> int:
     rest_paths["oriented"] = phase_oriented(build_frames, dev, smi)
     rest_paths["sift"] = phase_sift(build_frames, build_poses, dev, smi)
     rest_paths["determinism"] = phase_determinism(cli, dev, smi)
+    # the multi-device paths on one card (phases 30-33): each counted from 0
+    rest_paths["serve shards"], _ = phase_serve(big, serve_frames, own_frames, dev, smi,
+                                                shards=2)
+    rest_paths["sharded"], k4_shard_ms = phase_sharded(big, serve_frames, dev, smi)
+    phase_block_ba(dev, smi)
+    rest_paths["dryrun"] = phase_dryrun(dev, smi)
+    kstats["match_top2"]["shard_ms"] = {str(n): v for n, v in k4_shard_ms.items()}
     ext = ("diffuse_segment", "response_levels", "describe_upright")
     ba = ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused")
     rest_need = {"cli": ext + ba, "streaming": ext + ba, "oriented": ext[:2], "sift": ba,
-                 "determinism": ext + ba}
+                 "determinism": ext + ba, "serve shards": ext, "sharded": ("match_top2",),
+                 "dryrun": ext + ("match_top2", "match_pairs_fused")}
     for tag, got in rest_paths.items():
         log(f"[counters] {tag} launches {json.dumps(got)}")
         assert all(got.get(k, 0) > 0 for k in rest_need[tag]), f"{tag}: launches {got}"
@@ -3379,6 +3727,10 @@ def main() -> int:
         # host and takes the planes path, as the reference's does
         need = () if tag == "merge" else ("match_pairs_fused", "schur_cross_matvec",
                                           "ba_assemble_fused", "ba_cost_fused")
+        if tag in ("merge", "self-calibration"):
+            # the joint BA's planes path, the joint intrinsics system: their
+            # sums are the fixed-order segment sum's
+            need += ("segment_sum",)
         assert all(got.get(k, 0) > 0 for k in need), f"{tag}: launches {got}"
 
     check_launches("gather path", launches, extraction_launches())
@@ -3391,11 +3743,12 @@ def main() -> int:
     # K5-K8 add the launches of the new paths (phases 21-24) to their own:
     # each path's runs counted from 0, not the solves they are compared with
     path_launches = {**{k: serve_launches[k] for k in SERVE_KERNELS}, **front_launches,
-                     **{k: map_launches[k] for k in ("schur_cross_matvec", "ba_assemble_fused",
-                                                     "ba_cost_fused")}}
+                     **{k: map_launches.get(k, 0) for k in ("schur_cross_matvec",
+                                                            "ba_assemble_fused", "ba_cost_fused",
+                                                            "segment_sum")}}
     for got in new_paths.values():
         for k in ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused",
-                  "ba_cost_fused"):
+                  "ba_cost_fused", "segment_sum"):
             path_launches[k] += got.get(k, 0)
     # and every kernel the launches of phases 25-29's paths
     for got in rest_paths.values():

@@ -466,7 +466,8 @@ def main(argv=None):
     s.add_argument("--batch-window-ms", type=float, default=5.0)
     s.add_argument("--max-batch", type=int, default=32)
     s.add_argument("--shards", type=int, default=1,
-                   help="split each map across N devices (not ported: multi-GPU)")
+                   help="split each map into N shards, one per device (round-robin "
+                        "over the visible cards), each query routed by retrieval")
     s.add_argument("--no-warmup", action="store_true",
                    help="skip the batch-bucket warm-up at startup")
     s.add_argument("--config", default=None)

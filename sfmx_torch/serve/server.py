@@ -9,7 +9,9 @@ extraction on the card for image requests, then one localization call per
 (map, feature count, binary) group — runs in a worker thread, so the event
 loop keeps accepting requests meanwhile.  On a map of
 ``LocalizeConfig.streaming_min_landmarks`` or more landmarks the group goes
-through ``localize_batch_streaming`` (kernel K4 against the whole pool).
+through ``localize_batch_streaming`` (kernel K4 against the whole pool).  A
+map loaded with ``shards > 1`` is split across devices and each query is
+routed by retrieval to its shard (``serve/router.py``).
 Batches hold exactly the requests that arrived: PyTorch runs eagerly, so
 there is no compiled-shape set to bound by padding.
 """
@@ -27,6 +29,7 @@ import torch
 from ..localize.fusion import BeaconPrior, fuse
 from ..localize.localize import (LocalizationMap, LocalizeResult, localize_batch,
                                  localize_batch_streaming, use_streaming)
+from .router import MapShardRouter, split_localization_map
 
 
 @dataclasses.dataclass
@@ -101,20 +104,29 @@ class LocalizationService:
                  shards: int = 1):
         """Serve ``lmap`` (already on its device) under ``map_id``.  cfg is
         the PipelineConfig the map was built with; image requests are
-        extracted with it (queries must use the map's extractor family)."""
-        if shards > 1:
-            raise NotImplementedError(
-                "shards > 1 splits a map across devices: multi-GPU serving is "
-                "ROADMAP queue 1 item 10 (serve/router.py)")
+        extracted with it (queries must use the map's extractor family).
+
+        shards > 1 splits the map into that many keyframe-contiguous shards,
+        each on its own device (the visible cards for a map on a card, else
+        the map's device; round-robin when there are more shards than
+        devices), and routes each query by retrieval
+        to its shard (``router.MapShardRouter``: the building-scale path;
+        float descriptors only, as in the reference).  Image requests are
+        extracted on the first device and their features go to the shard's."""
         if cfg is None:
             from ..cli.config import PipelineConfig
 
             cfg = PipelineConfig()
-        dev = lmap.X.device
-        if dev not in self._gens:
-            self._gens[dev] = torch.Generator(device=dev).manual_seed(self._seed)
-        intr = torch.tensor(np.asarray(intr, np.float32), device=dev)
-        self.maps[map_id] = (lmap, intr, cfg)
+        obj = lmap
+        if shards > 1:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if lmap.X.device.type == "cuda" else [lmap.X.device])
+            obj = MapShardRouter.build(split_localization_map(lmap, shards), devices)
+        for dev in (obj.devices if shards > 1 else [lmap.X.device]):
+            if dev not in self._gens:
+                self._gens[dev] = torch.Generator(device=dev).manual_seed(self._seed)
+        intr = torch.tensor(np.asarray(intr, np.float32), device=_device(obj))
+        self.maps[map_id] = (obj, intr, cfg)
 
     def warmup(self, map_id: str):
         """Build the kernels and run one batch of blank images through
@@ -125,8 +137,8 @@ class LocalizationService:
                 for _ in range(self.max_batch)]
         self._extract(reqs)
         self._localize_group(map_id, reqs, self._binary(reqs[0]))
-        if lmap.X.device.type == "cuda":
-            torch.cuda.synchronize(lmap.X.device)
+        if _device(lmap).type == "cuda":
+            torch.cuda.synchronize()
 
     async def start(self):
         self._queue = asyncio.Queue()
@@ -191,7 +203,9 @@ class LocalizationService:
     # ---- synchronous device work (worker thread) ---------------------------
 
     def _binary(self, r: _Request) -> bool:
-        return r.q_bits is not None and self.maps[r.map_id][0].lm_bits is not None
+        # a routed map matches float descriptors only, as the reference's
+        return (r.q_bits is not None
+                and getattr(self.maps[r.map_id][0], "lm_bits", None) is not None)
 
     def _extract(self, reqs: list[_Request]):
         """Server-side extraction for image requests: one
@@ -204,7 +218,7 @@ class LocalizationService:
             groups.setdefault((r.map_id, r.image.shape), []).append(r)
         for (map_id, _shape), g in groups.items():
             lmap, _intr, cfg = self.maps[map_id]
-            feats = extract_features(np.stack([r.image for r in g]), cfg, lmap.X.device)
+            feats = extract_features(np.stack([r.image for r in g]), cfg, _device(lmap))
             for i, r in enumerate(g):
                 r.q_desc, r.q_uv, r.q_mask = feats.desc[i], feats.kp.uv[i], feats.kp.mask[i]
                 r.q_bits = feats.desc_bits[i]
@@ -236,8 +250,7 @@ class LocalizationService:
     def _localize_group(self, map_id: str, reqs: list[_Request], binary: bool):
         lmap, intr0, cfg = self.maps[map_id]
         lc = cfg.localize
-        dev = lmap.X.device
-        gen = self._gens[dev]
+        dev = _device(lmap)
 
         def stack(name, dtype=None):
             return torch.stack([torch.as_tensor(getattr(r, name), dtype=dtype, device=dev)
@@ -247,31 +260,31 @@ class LocalizationService:
         intr_b = torch.stack([intr0 if r.intr is None else
                               torch.as_tensor(np.asarray(r.intr, np.float32), device=dev)
                               for r in reqs])
-        if binary:
+        kw = dict(top_k_kf=lc.top_k_kf, m_cap=lc.m_cap, k_hypotheses=lc.k_hypotheses,
+                  px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers,
+                  ham_thresh=lc.ham_thresh, pnp_solver=lc.pnp_solver)
+        if isinstance(lmap, MapShardRouter):
+            # multi-device map: each query to its shard's device, one
+            # localize_batch call per shard group, every kwarg forwarded
+            res, _ = lmap.localize_batch(q_desc, q_uv, q_mask, intr_b, generators=self._gens,
+                                         **kw)
+        elif binary:
             q_bits = torch.stack([torch.as_tensor(np.asarray(r.q_bits).view(np.int32))
                                   if isinstance(r.q_bits, np.ndarray) else r.q_bits
                                   for r in reqs]).to(dev)
-            res = localize_batch(
-                lmap, q_desc, q_uv, q_mask, intr_b, generator=gen, q_bits=q_bits,
-                top_k_kf=lc.top_k_kf, m_cap=lc.m_cap, k_hypotheses=lc.k_hypotheses,
-                px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh,
-                min_inliers=lc.min_inliers, ham_thresh=lc.ham_thresh,
-                pnp_solver=lc.pnp_solver)
+            res = localize_batch(lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
+                                 q_bits=q_bits, **kw)
         elif use_streaming(lc, lmap, binary):
             # map-scale path: the whole batch against every landmark in ONE
             # K4 call; like the reference, the server passes no ratio
             res = localize_batch_streaming(
-                lmap, q_desc, q_uv, q_mask, intr_b, generator=gen,
+                lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
                 k_hypotheses=lc.k_hypotheses, px_thresh=lc.px_thresh,
                 sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers,
                 pnp_solver=lc.pnp_solver)
         else:
-            res = localize_batch(
-                lmap, q_desc, q_uv, q_mask, intr_b, generator=gen,
-                top_k_kf=lc.top_k_kf, m_cap=lc.m_cap, k_hypotheses=lc.k_hypotheses,
-                px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh,
-                min_inliers=lc.min_inliers, ham_thresh=lc.ham_thresh,
-                pnp_solver=lc.pnp_solver)
+            res = localize_batch(lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
+                                 **kw)
         res = LocalizeResult(*(x.cpu() for x in res))
         out = []
         for i, r in enumerate(reqs):
@@ -286,6 +299,12 @@ class LocalizationService:
                 "source": int(fused.source),
             }))
         return out
+
+
+def _device(lmap) -> torch.device:
+    """Where a served map's queries are extracted and stacked: the map's
+    device, or a router's first."""
+    return lmap.devices[0] if isinstance(lmap, MapShardRouter) else lmap.X.device
 
 
 def decode_image_payload(data: bytes, resize_to=(640, 480)) -> np.ndarray:

@@ -6,8 +6,9 @@ Holding geometry fixed, each intrinsics group solves an independent
 <= 5x5 GN system assembled with one segment sum over its observations.
 The joint pose, point and intrinsics LM that a build runs with
 ``ReconConfig.refine_intrinsics`` is ``lm.ba_solve_intrinsics``, which uses
-``PARAM_SPEC`` and ``_delta_to_intr`` from here.  Plain torch: the
-reference has no kernel here.  Jacobians come from ``torch.func.jacrev``
+``PARAM_SPEC`` and ``_delta_to_intr`` from here.  The per-group sums are
+the fixed-order segment sums of ``kernels/segment_sum``.  Plain torch
+around them: the reference has no kernel here.  Jacobians come from ``torch.func.jacrev``
 under ``torch.func.vmap`` (two output rows an observation, so reverse mode
 costs what the reference's ``jax.jacfwd`` does; forward mode in torch 2.13
 promotes a tangent to float64 at an add of a Python scalar and then fails
@@ -19,6 +20,7 @@ import torch
 from torch.func import jacrev, vmap
 
 from ..core import cameras
+from ..kernels.segment_sum import segment_plan, segment_sum
 
 # which components of the length-7 intrinsics vector are refined
 # [fx, fy, cx, cy, k1, k2, k3]; fx == fy kept through a shared focal delta
@@ -52,6 +54,7 @@ def refine_intrinsics_gn(intr, k_idx, R, t, X, cam_id, pt_id, uv, w, *,
     n_p = len(params)
     ci, pi = cam_id.long(), pt_id.long()
     group = k_idx.long()[ci]                               # (O,)
+    plan = segment_plan(group, I)                          # fixed-order sums
     Ro, to, Xo = R[ci], t[ci], X[pi]
 
     def cost(it):
@@ -70,10 +73,8 @@ def refine_intrinsics_gn(intr, k_idx, R, t, X, cam_id, pt_id, uv, w, *,
         r = res(zero, *args)                                              # (O,2)
         J = vmap(jacrev(res), in_dims=(None, 0, 0, 0, 0, 0))(zero, *args)  # (O,2,n_p)
         Jw = J * w[:, None, None]
-        H = torch.zeros((I, n_p, n_p), dtype=intr.dtype, device=intr.device).index_add_(
-            0, group, Jw.transpose(1, 2) @ J)
-        g = torch.zeros((I, n_p), dtype=intr.dtype, device=intr.device).index_add_(
-            0, group, (Jw.transpose(1, 2) @ r[..., None])[..., 0])
+        H = segment_sum(Jw.transpose(1, 2) @ J, plan)
+        g = segment_sum((Jw.transpose(1, 2) @ r[..., None])[..., 0], plan)
         # multiplicative damping: focal (pixels) and distortion (unitless)
         # differ by ~3 orders of magnitude, absolute damping cripples one
         d = torch.diagonal(H, dim1=-2, dim2=-1)

@@ -64,15 +64,56 @@ def robust_cost(r2: torch.Tensor, w_valid: torch.Tensor, delta: float) -> torch.
     return 0.5 * torch.sum(rho * w_valid)
 
 
+def _residual_one(k, R, t, X, uv):
+    """Focal-normalized reprojection residual (~ radians) of observation rows:
+    k (...,7), R (...,3,3), t (...,3), X (...,3), uv (...,2) with the same
+    leading dims (the reference's per-row function, batched).  Working in
+    r_px / f keeps Jacobian entries O(1); costs and thresholds are
+    normalized the same way, so the optimum is unchanged."""
+    f = 0.5 * (k[..., 0] + k[..., 1])
+    return cameras.reprojection_residual(k, R, t, X, uv) / f[..., None]
+
+
 def _eval_cost(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, delta):
     ci = cam_id.long()
-    ko = intr[k_idx.long()[ci]]
-    f = 0.5 * (ko[:, 0] + ko[:, 1])
-    r = cameras.reprojection_residual(ko, R[ci], t[ci], X[pt_id.long()], uv) / f[:, None]
+    r = _residual_one(intr[k_idx.long()[ci]], R[ci], t[ci], X[pt_id.long()], uv)
     return robust_cost(torch.sum(r * r, dim=-1), w_valid, delta)
 
 
 _ALPHAS = (1.0, 0.5, 0.25, 0.0625)
+
+
+def lm_decide(trial_costs, cost, lam):
+    """Accept/reject and the damping update from the candidates' costs:
+    (best (1,) index, accept, the best trial cost, the next damping).  All
+    device tensors: no host sync, and ranks that hold the same all-reduced
+    costs decide alike."""
+    best = torch.argmin(trial_costs)[None]       # a 1-d index: no host sync
+    new_cost = trial_costs[best][0]
+    accept = new_cost < cost
+    full_step = accept & (best[0] == 0)
+    lam2 = torch.where(full_step, lam * 0.33, torch.where(accept, lam, lam * 4.0))
+    return best, accept, new_cost, torch.clamp(lam2, 1e-9, 1e6)
+
+
+def lm_step(state: BAState, dx_c, dx_p, cost_of, alphas) -> BAState:
+    """The step-scaling line search and accept/reject of one LM iteration.
+
+    f32 assembly noise can corrupt the step's components along flat (gauge /
+    low-parallax) directions; a few halvings recover the descent part (the
+    noise penalty shrinks as alpha^2, the real gain only as alpha).
+    ``cost_of(Rs, ts, Xs)`` gives the (len(alphas),) robust costs of the
+    candidates; accept/reject and the damping stay device scalars, so no
+    rank and no step waits on the host.
+    """
+    R, t, X = state.R, state.t, state.X
+    Rs, ts = se3.perturb_b(R, t, alphas[:, None, None] * dx_c)     # (4,C,3,3), (4,C,3)
+    Xs = X + alphas[:, None, None] * dx_p
+    best, accept, new_cost, lam = lm_decide(cost_of(Rs, ts, Xs), state.cost, state.lam)
+    pick = lambda x: x[best][0]
+    return BAState(torch.where(accept, pick(Rs), R), torch.where(accept, pick(ts), t),
+                   torch.where(accept, pick(Xs), X), lam,
+                   torch.where(accept, new_cost, state.cost))
 
 
 def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *,
@@ -106,7 +147,7 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
     # on the order (every use is a sum)
     perm = torch.argsort(pt_id, stable=True)
     cam_id, pt_id, uv, w_valid = cam_id[perm], pt_id[perm], uv[perm], w_valid[perm]
-    dense = ov = None
+    dense = ov = plans = None
     if dense_cg:
         if not tp_cap:
             raise ValueError("dense_cg requires tp_cap (track-length bound)")
@@ -123,6 +164,11 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
                 raise ValueError(f"{len(ovi)} overflow observations exceed ov_cap={ov_cap}")
             if len(ovi):
                 ov = (cam_id[ovi], pt_id[ovi], uv[ovi], w_valid[ovi])
+                # the overflow's segment sums, their order fixed for the solve
+                plans = (schur.segment_plan(ov[0], n_cams), schur.segment_plan(ov[1], n_pts))
+    else:
+        # the segment sums' order, fixed once for the solve
+        plans = (schur.segment_plan(cam_id, n_cams), schur.segment_plan(pt_id, n_pts))
 
     def cost_of(Rs, ts, Xs):
         """Robust cost of len(Rs) candidates, through K8 on the dense path."""
@@ -151,7 +197,7 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
                 r2o = torch.sum(r_o * r_o, dim=-1)
                 ov_blocks = schur.assemble_planes(Jc_o, Jp_o, r_o,
                                                   ov[3] * huber_weight(r2o, huber_n),
-                                                  ov[0], ov[1], n_cams, n_pts)
+                                                  *plans)
                 ov_cost = robust_cost(r2o, ov[3], huber_n)
             sysd, _ = schur.reduce_system_fused(intr, k_idx, R, t, X, assemble, state.lam,
                                                 huber_n, ov_blocks=ov_blocks, ov_cost=ov_cost)
@@ -160,28 +206,12 @@ def ba_solve(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_cam_mask, *
         else:
             r, Jc, Jp = _jacobians_planes(intr, k_idx, R, t, X, cam_id, pt_id, uv)
             w = w_valid * huber_weight(torch.sum(r * r, dim=-1), huber_n)
-            nbp = schur.assemble_planes(Jc, Jp, r, w, cam_id, pt_id, n_cams, n_pts)
+            nbp = schur.assemble_planes(Jc, Jp, r, w, *plans)
             sysp = schur.reduce_system_planes(nbp, state.lam)
             dx_c, _ = schur.pcg_planes(sysp, iters=cg_iters, fixed_cam_mask=fixed_cam_mask)
             dx_p = schur.solve_points_planes(sysp, dx_c)
 
-        # Step-scaling line search: f32 assembly noise can corrupt the
-        # step's components along flat (gauge / low-parallax) directions;
-        # a few halvings recover the descent part (the noise penalty shrinks
-        # as alpha^2, the real gain only as alpha).
-        Rs, ts = se3.perturb_b(R, t, alphas[:, None, None] * dx_c)     # (4,C,3,3), (4,C,3)
-        Xs = X + alphas[:, None, None] * dx_p
-        trial_costs = cost_of(Rs, ts, Xs)
-        best = torch.argmin(trial_costs)
-        pick = lambda x: x[best[None]][0]       # a 1-d index: no host sync
-        new_cost = pick(trial_costs)
-        accept = new_cost < state.cost
-        full_step = accept & (best == 0)
-        lam2 = torch.where(full_step, state.lam * 0.33,
-                           torch.where(accept, state.lam, state.lam * 4.0))
-        state = BAState(torch.where(accept, pick(Rs), R), torch.where(accept, pick(ts), t),
-                        torch.where(accept, pick(Xs), X), torch.clamp(lam2, 1e-9, 1e6),
-                        torch.where(accept, new_cost, state.cost))
+        state = lm_step(state, dx_c, dx_p, cost_of, alphas)
         costs.append(state.cost)
     out = (state.R, state.t, state.X, torch.stack(costs))
     return out + (state.lam,) if return_lam else out
@@ -239,7 +269,9 @@ def ba_solve_intrinsics(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_
     perm = torch.argsort(pt_id, stable=True)
     cam_id, pt_id, uv, w_valid = cam_id[perm], pt_id[perm], uv[perm], w_valid[perm]
     ci, pi = cam_id.long(), pt_id.long()
-    group = k_idx[ci]
+    # the segment sums' order, fixed once for the solve
+    plans = (schur.segment_plan(ci, n_cams), schur.segment_plan(pi, n_pts),
+             schur.segment_plan(k_idx.long()[ci], n_groups), schur.segment_plan(k_idx, n_groups))
 
     def eval_cost(intr_, R_, t_, X_):
         r = cameras.reprojection_residual(intr_[k_idx.long()[ci]], R_[ci], t_[ci], X_[pi],
@@ -252,8 +284,7 @@ def ba_solve_intrinsics(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_
     for _ in range(iters):
         r, Jc, Jp, Jk = _jacobians_k(intr, k_idx, R, t, X, cam_id, pt_id, uv, params, f_ref)
         w = w_valid * huber_weight(torch.sum(r * r, dim=-1), huber_n)
-        nbk = schur.assemble_with_intrinsics(Jc, Jp, Jk, r, w, cam_id, pt_id, group, k_idx,
-                                             n_cams, n_pts, n_groups)
+        nbk = schur.assemble_with_intrinsics(Jc, Jp, Jk, r, w, *plans)
         sk = schur.reduce_system_k(nbk, lam)
         dx_c, dx_k = schur.pcg_k(sk, iters=cg_iters, fixed_cam_mask=fixed_cam_mask)
         dx_p = schur.solve_points_k(sk, dx_c, dx_k)
@@ -262,14 +293,9 @@ def ba_solve_intrinsics(intr, k_idx, R, t, X, cam_id, pt_id, uv, w_valid, fixed_
         for a in _ALPHAS:
             R2, t2 = se3.perturb(R, t, a * dx_c)
             cands.append((_delta_to_intr(intr, a * dx_k, params), R2, t2, X + a * dx_p))
-        tc = torch.stack([eval_cost(*c) for c in cands])
-        best = torch.argmin(tc)
-        pick = lambda i: torch.stack([c[i] for c in cands])[best[None]][0]
-        new_cost = tc[best[None]][0]
-        accept = new_cost < cost
-        full = accept & (best == 0)
-        lam = torch.clamp(torch.where(full, lam * 0.33, torch.where(accept, lam, lam * 4.0)),
-                          1e-9, 1e6)
+        best, accept, new_cost, lam = lm_decide(torch.stack([eval_cost(*c) for c in cands]),
+                                                cost, lam)
+        pick = lambda i: torch.stack([c[i] for c in cands])[best][0]
         intr, R, t, X = (torch.where(accept, pick(i), x) for i, x in enumerate((intr, R, t, X)))
         cost = torch.where(accept, new_cost, cost)
         costs.append(new_cost)

@@ -6,12 +6,15 @@ observation, the normal-equation blocks are segment sums over camera or
 point ids, and the Schur complement S = U - W V^-1 W^T is applied
 matrix-free inside a block-Jacobi PCG.  Two pipelines are ported:
 
-- PLANES: per-observation (O,18) W blocks, ``index_add_`` for the segment
-  sums: small problems, CPU tensors, the merge's joint BA, the overflow
-  observations of the dense path, and the pose/point part of the joint
-  pose, point and intrinsics system (``NormalBlocksK``, ``pcg_k``) that
-  ``lm.ba_solve_intrinsics`` solves; plain torch, as the reference has no
-  kernel there.
+- PLANES: per-observation (O,18) W blocks, fixed-order segment sums
+  (``kernels/segment_sum``: the ids planned once per solve, each segment
+  summed in that order by a hand-written kernel on the card, no float
+  atomics, so a solve's bits do not depend on the card's scheduling): small
+  problems, CPU tensors, the merge's joint BA, the overflow observations of
+  the dense path, and the pose/point part of the joint pose, point and
+  intrinsics system (``NormalBlocksK``, ``pcg_k``) that
+  ``lm.ba_solve_intrinsics`` solves; plain torch around the sums, as the
+  reference has no kernel there.
 - DENSE: the point-major slot layout of ``kernels/segsum`` with the fused
   kernels K7 (assembly) and K6 (the cross term of every matvec, the Schur
   rhs and the back-substitution).  Observations of tracks longer than the
@@ -29,6 +32,8 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import segsum
+# segment_plan is re-exported: the solvers plan their sums through schur
+from ..kernels.segment_sum import SegmentPlan, segment_plan, segment_sum  # noqa: F401
 
 
 def _damp(M: torch.Tensor, lam) -> torch.Tensor:
@@ -82,12 +87,6 @@ def _inv_spd6(M: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)
 
 
-def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """(O,...) rows summed by segment id -> (n,...)."""
-    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(
-        0, ids.long(), x)
-
-
 def _bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(N,a,b) blocks @ (N,b) -> (N,a)."""
     return (M @ v[..., None])[..., 0]
@@ -109,16 +108,27 @@ class NormalBlocksP(NamedTuple):
     W18: torch.Tensor      # (O,18) row-major 6x3 coupling blocks
     b_c: torch.Tensor      # (C,6)
     b_p: torch.Tensor      # (P,3)
-    cam_id: torch.Tensor
-    pt_id: torch.Tensor
+    cam: SegmentPlan       # the observations' camera ids, their sums' order
+    pt: SegmentPlan        # their point ids, likewise
 
 
-def assemble_planes(Jc, Jp, r, w, cam_id, pt_id, n_cams: int, n_pts: int) -> NormalBlocksP:
+def assemble_planes(Jc, Jp, r, w, cam: SegmentPlan, pt: SegmentPlan) -> NormalBlocksP:
     """Normal blocks from planes-layout Jacobians (``lm._jacobians_planes``).
 
     Jc (O,12) = [du/d(w,t) | dv/d(w,t)]; Jp (O,6) = [du/dX | dv/dX]; r (O,2);
-    w (O,) weights (0 for invalid rows, Huber weights otherwise).
+    w (O,) weights (0 for invalid rows, Huber weights otherwise); ``cam``,
+    ``pt``: the segment plans of the camera and point ids, built once per
+    solve (``segment_plan``).
     """
+    U_o, V_o, W_o, bc_o, bp_o = planes_terms(Jc, Jp, r, w)
+    U = segment_sum(U_o, cam).reshape(cam.n, 6, 6)
+    return NormalBlocksP(U, segment_sum(V_o, pt), W_o, segment_sum(bc_o, cam),
+                         segment_sum(bp_o, pt), cam, pt)
+
+
+def planes_terms(Jc, Jp, r, w):
+    """Each observation's terms of the normal blocks: U_o (O,36), V_o (O,9),
+    W_o (O,18), bc_o (O,6), bp_o (O,3)."""
     Ju, Jv = Jc[:, :6], Jc[:, 6:]
     Pu, Pv = Jp[:, :3], Jp[:, 3:]
     ru, rv = r[:, 0:1], r[:, 1:2]
@@ -129,10 +139,7 @@ def assemble_planes(Jc, Jp, r, w, cam_id, pt_id, n_cams: int, n_pts: int) -> Nor
     W_o = wc * (outer(Ju, Pu) + outer(Jv, Pv))                      # (O,18)
     bc_o = -wc * (Ju * ru + Jv * rv)
     bp_o = -wc * (Pu * ru + Pv * rv)
-    U = _segment_sum(U_o, cam_id, n_cams).reshape(n_cams, 6, 6)
-    return NormalBlocksP(U, _segment_sum(V_o, pt_id, n_pts), W_o,
-                         _segment_sum(bc_o, cam_id, n_cams), _segment_sum(bp_o, pt_id, n_pts),
-                         cam_id, pt_id)
+    return U_o, V_o, W_o, bc_o, bp_o
 
 
 def _damp_inv3_rows(V9r: torch.Tensor, lam, eps: float = 1e-8) -> torch.Tensor:
@@ -175,31 +182,33 @@ def reduce_system_planes(nb: NormalBlocksP, lam) -> SchurSystemP:
     Ud = _damp(nb.U, lam)
     Vinv9 = _damp_inv3_planes(nb.V9, lam)
     Vinv_bp = _mv3_planes(Vinv9, nb.b_p)
-    contrib = _W_x(nb.W18, Vinv_bp[nb.pt_id.long()])
-    b_red = nb.b_c - _segment_sum(contrib, nb.cam_id, nb.U.shape[0])
+    contrib = _W_x(nb.W18, Vinv_bp[nb.pt.ids])
+    b_red = nb.b_c - segment_sum(contrib, nb.cam)
     return SchurSystemP(nb, Vinv9, Ud, b_red)
 
 
 def schur_matvec_planes(sys: SchurSystemP, x: torch.Tensor) -> torch.Tensor:
     nb = sys.blocks
     Ux = (sys.Ud @ x[:, :, None])[:, :, 0]
-    y_p = _segment_sum(_W_t_x(nb.W18, x[nb.cam_id.long()]), nb.pt_id, sys.Vinv9.shape[0])
-    Vy = _mv3_planes(sys.Vinv9, y_p)
-    z_o = _W_x(nb.W18, Vy[nb.pt_id.long()])
-    return Ux - _segment_sum(z_o, nb.cam_id, x.shape[0])
+    Vy = _mv3_planes(sys.Vinv9, segment_sum(_W_t_x(nb.W18, x[nb.cam.ids]), nb.pt))
+    return Ux - segment_sum(_W_x(nb.W18, Vy[nb.pt.ids]), nb.cam)
 
 
 def solve_points_planes(sys: SchurSystemP, dx_c: torch.Tensor) -> torch.Tensor:
     nb = sys.blocks
-    Wtx = _W_t_x(nb.W18, dx_c[nb.cam_id.long()])
-    rhs = nb.b_p - _segment_sum(Wtx, nb.pt_id, sys.Vinv9.shape[0])
+    rhs = nb.b_p - segment_sum(_W_t_x(nb.W18, dx_c[nb.cam.ids]), nb.pt)
     return _mv3_planes(sys.Vinv9, rhs)
 
 
-def _pcg(matvec, Ud: torch.Tensor, b_red: torch.Tensor, iters: int, fixed_cam_mask):
+def _pcg(matvec, Ud: torch.Tensor, b_red: torch.Tensor, iters: int, fixed_cam_mask,
+         dot=None):
     """Block-Jacobi PCG on the reduced camera system; a fixed iteration
-    count, and alpha/beta stay 0-d device tensors (no host sync per step)."""
+    count, and alpha/beta stay 0-d device tensors (no host sync per step).
+    ``dot(a, b)``: the inner product (default the local sum of a * b; a
+    camera-sharded solve sums it over ranks)."""
     Minv = _inv_spd(Ud)
+    if dot is None:
+        dot = lambda a, b: torch.sum(a * b)
 
     def proj(x):
         if fixed_cam_mask is None:
@@ -215,12 +224,12 @@ def _pcg(matvec, Ud: torch.Tensor, b_red: torch.Tensor, iters: int, fixed_cam_ma
     p = z
     for _ in range(iters):
         Sp = proj(matvec(p))
-        rz = torch.sum(r * z)
-        alpha = rz / torch.clamp(torch.sum(p * Sp), min=1e-20)
+        rz = dot(r, z)
+        alpha = rz / torch.clamp(dot(p, Sp), min=1e-20)
         x = x + alpha * p
         r = r - alpha * Sp
         z = prec(r)
-        beta = torch.sum(r * z) / torch.clamp(rz, min=1e-20)
+        beta = dot(r, z) / torch.clamp(rz, min=1e-20)
         p = z + beta * p
     return x, torch.sqrt(torch.sum(r * r))
 
@@ -252,21 +261,19 @@ class SchurSystemD(NamedTuple):
     Ud: torch.Tensor        # (C,6,6)
     b_red: torch.Tensor     # (C,6)
     ov_W18: torch.Tensor | None = None   # (Ov,18)
-    ov_cam: torch.Tensor | None = None   # (Ov,)
-    ov_pt: torch.Tensor | None = None    # (Ov,)
+    ov_cam: SegmentPlan | None = None    # their camera and point ids
+    ov_pt: SegmentPlan | None = None
 
 
 def _cross(sysd: SchurSystemD, x6: torch.Tensor, bias3):
     """K6 with the overflow observations chained in: (z6 (6,C), vy3 (3,P))."""
     P = sysd.cross.P
     if sysd.ov_W18 is not None:
-        y_ov = _W_t_x(sysd.ov_W18, x6.T[sysd.ov_cam.long()])
-        yp = _segment_sum(y_ov, sysd.ov_pt, P).T
+        yp = segment_sum(_W_t_x(sysd.ov_W18, x6.T[sysd.ov_cam.ids]), sysd.ov_pt).T
         bias3 = yp.contiguous() if bias3 is None else bias3 + yp
     z6, vy3 = sysd.cross(x6, bias3)
     if sysd.ov_W18 is not None:
-        z_ov = _W_x(sysd.ov_W18, vy3.T[sysd.ov_pt.long()])
-        z6 = z6 + _segment_sum(z_ov, sysd.ov_cam, x6.shape[1]).T
+        z6 = z6 + segment_sum(_W_x(sysd.ov_W18, vy3.T[sysd.ov_pt.ids]), sysd.ov_cam).T
     return z6, vy3
 
 
@@ -287,14 +294,14 @@ def reduce_system_fused(intr, k_idx, R, t, X, assemble: segsum.AssembleFused, la
     U, b_c, v13, Wp = assemble(cam19, x3, delta)
     cost = torch.sum(v13[12])
     v9r, bpr = v13[:9], v13[9:12]
-    ov = (None, None, None)
+    ov = (None,) * 3
     if ov_blocks is not None:
         U = U + ov_blocks.U
         b_c = b_c + ov_blocks.b_c
         cost = cost + ov_cost
         v9r = v9r + ov_blocks.V9.T
         bpr = bpr + ov_blocks.b_p.T
-        ov = (ov_blocks.W18, ov_blocks.cam_id, ov_blocks.pt_id)
+        ov = (ov_blocks.W18, ov_blocks.cam, ov_blocks.pt)
     cross = segsum.SchurMatvec(Wp, assemble.dense, _damp_inv3_rows(v9r, lam).contiguous())
     sysd = SchurSystemD(cross, bpr.contiguous(), _damp(U, lam), b_c, *ov)
     # b_red = b_c - scatter_cam(W V^-1 b_p): the kernel with x = 0
@@ -336,26 +343,25 @@ class NormalBlocksK(NamedTuple):
     Uck: torch.Tensor       # (C,6,n_p) pose-intrinsics coupling (summed per camera)
     Wk: torch.Tensor        # (O,n_p,3) intrinsics-point coupling per observation
     b_k: torch.Tensor       # (I,n_p)
-    group: torch.Tensor     # (O,) intrinsics group of each observation
-    cam_group: torch.Tensor  # (C,) intrinsics group of each camera
+    group: SegmentPlan      # (O,) intrinsics group of each observation
+    cam_group: SegmentPlan  # (C,) intrinsics group of each camera
 
 
-def assemble_with_intrinsics(Jc, Jp, Jk, r, w, cam_id, pt_id, group, cam_group,
-                             n_cams: int, n_pts: int, n_groups: int) -> NormalBlocksK:
+def assemble_with_intrinsics(Jc, Jp, Jk, r, w, cam: SegmentPlan, pt: SegmentPlan,
+                             group: SegmentPlan, cam_group: SegmentPlan) -> NormalBlocksK:
     """``assemble_planes`` of Jc (O,2,6), Jp (O,2,3) plus the intrinsics
-    blocks of Jk (O,2,n_p)."""
+    blocks of Jk (O,2,n_p); the plans of the camera, point, observation
+    group and camera group ids, built once per solve."""
     O = Jc.shape[0]
-    base = assemble_planes(Jc.reshape(O, 12), Jp.reshape(O, 6), r, w, cam_id, pt_id,
-                           n_cams, n_pts)
+    base = assemble_planes(Jc.reshape(O, 12), Jp.reshape(O, 6), r, w, cam, pt)
     ws = w[:, None, None]
     Jkt = (Jk * ws).transpose(1, 2)                       # (O,n_p,2)
     Ukk_o = Jkt @ Jk
     Uck_o = (Jc * ws).transpose(1, 2) @ Jk                # (O,6,n_p)
     Wk_o = Jkt @ Jp                                       # (O,n_p,3)
     bk_o = -(Jkt @ r[..., None])[..., 0]
-    return NormalBlocksK(base, _segment_sum(Ukk_o, group, n_groups),
-                         _segment_sum(Uck_o, cam_id, n_cams), Wk_o,
-                         _segment_sum(bk_o, group, n_groups), group, cam_group)
+    return NormalBlocksK(base, segment_sum(Ukk_o, group), segment_sum(Uck_o, cam), Wk_o,
+                         segment_sum(bk_o, group), group, cam_group)
 
 
 class SchurSystemK(NamedTuple):
@@ -364,20 +370,16 @@ class SchurSystemK(NamedTuple):
     Uck: torch.Tensor        # (C,6,n_p)
     Wk: torch.Tensor         # (O,n_p,3)
     b_red_k: torch.Tensor    # (I,n_p)
-    group: torch.Tensor
-    cam_group: torch.Tensor
-
-    @property
-    def n_groups(self) -> int:
-        return self.Ukk_d.shape[0]
+    group: SegmentPlan
+    cam_group: SegmentPlan
 
 
 def reduce_system_k(nbk: NormalBlocksK, lam) -> SchurSystemK:
     sys = reduce_system_planes(nbk.base, lam)
-    nb = nbk.base
+    nb = sys.blocks
     # b_red_k = b_k - Wk V^-1 b_p
-    contrib = _bmv(nbk.Wk, _mv3_planes(sys.Vinv9, nb.b_p)[nb.pt_id.long()])
-    b_red_k = nbk.b_k - _segment_sum(contrib, nbk.group, nbk.Ukk.shape[0])
+    contrib = _bmv(nbk.Wk, _mv3_planes(sys.Vinv9, nb.b_p)[nb.pt.ids])
+    b_red_k = nbk.b_k - segment_sum(contrib, nbk.group)
     return SchurSystemK(sys, _damp(nbk.Ukk, lam), nbk.Uck, nbk.Wk, b_red_k, nbk.group,
                         nbk.cam_group)
 
@@ -385,22 +387,21 @@ def reduce_system_k(nbk: NormalBlocksK, lam) -> SchurSystemK:
 def _point_rhs_k(sk: SchurSystemK, x_c, x_k) -> torch.Tensor:
     """Per point: sum over its observations of Wc^T x_cam + Wk^T x_group."""
     nb = sk.sys.blocks
-    Wtx = _W_t_x(nb.W18, x_c[nb.cam_id.long()]) + _bmtv(sk.Wk, x_k[sk.group.long()])
-    return _segment_sum(Wtx, nb.pt_id, sk.sys.Vinv9.shape[0])
+    Wtx = _W_t_x(nb.W18, x_c[nb.cam.ids]) + _bmtv(sk.Wk, x_k[sk.group.ids])
+    return segment_sum(Wtx, nb.pt)
 
 
 def schur_matvec_k(sk: SchurSystemK, x_c: torch.Tensor, x_k: torch.Tensor):
     """Matvec of the reduced system over (poses, intrinsics groups)."""
     sys = sk.sys
     nb = sys.blocks
-    cg = sk.cam_group.long()
     # direct terms
-    y_c = _bmv(sys.Ud, x_c) + _bmv(sk.Uck, x_k[cg])
-    y_k = _bmv(sk.Ukk_d, x_k) + _segment_sum(_bmtv(sk.Uck, x_c), cg, sk.n_groups)
+    y_c = _bmv(sys.Ud, x_c) + _bmv(sk.Uck, x_k[sk.cam_group.ids])
+    y_k = _bmv(sk.Ukk_d, x_k) + segment_sum(_bmtv(sk.Uck, x_c), sk.cam_group)
     # point-mediated terms: z_p = V^-1 (Wc^T x_c + Wk^T x_k) per point
-    Vz = _mv3_planes(sys.Vinv9, _point_rhs_k(sk, x_c, x_k))[nb.pt_id.long()]
-    y_c = y_c - _segment_sum(_W_x(nb.W18, Vz), nb.cam_id, x_c.shape[0])
-    y_k = y_k - _segment_sum(_bmv(sk.Wk, Vz), sk.group, sk.n_groups)
+    Vz = _mv3_planes(sys.Vinv9, _point_rhs_k(sk, x_c, x_k))[nb.pt.ids]
+    y_c = y_c - segment_sum(_W_x(nb.W18, Vz), nb.cam)
+    y_k = y_k - segment_sum(_bmv(sk.Wk, Vz), sk.group)
     return y_c, y_k
 
 
@@ -412,8 +413,20 @@ def solve_points_k(sk: SchurSystemK, dx_c: torch.Tensor, dx_k: torch.Tensor) -> 
 def pcg_k(sk: SchurSystemK, iters: int = 30, fixed_cam_mask=None):
     """Block-Jacobi PCG on the (poses + intrinsics) reduced system; a fixed
     iteration count.  Returns (dx_c (C,6), dx_k (I,n_p))."""
-    Minv_c = _inv_spd(sk.sys.Ud)
-    Minv_k = _inv_spd(sk.Ukk_d)
+    return pcg_pair(lambda xc, xk: schur_matvec_k(sk, xc, xk), sk.sys.Ud, sk.Ukk_d,
+                    sk.sys.b_red, sk.b_red_k, iters, fixed_cam_mask)
+
+
+def pcg_pair(matvec, Ud, Ukk_d, b_red_c, b_red_k, iters: int, fixed_cam_mask, dot_c=None):
+    """``_pcg`` on a (poses, intrinsics groups) pair of vectors:
+    ``matvec(x_c, x_k)`` -> (y_c, y_k), block-Jacobi on Ud and Ukk_d.
+    ``dot_c(a, b)``: the pose part's inner product (default the local sum of
+    a * b; a camera-sharded solve sums it over ranks); the intrinsics part
+    is replicated, so its sum is local."""
+    Minv_c = _inv_spd(Ud)
+    Minv_k = _inv_spd(Ukk_d)
+    if dot_c is None:
+        dot_c = lambda a, b: torch.sum(a * b)
 
     def proj(xc, xk):
         if fixed_cam_mask is None:
@@ -424,14 +437,14 @@ def pcg_k(sk: SchurSystemK, iters: int = 30, fixed_cam_mask=None):
         return _bmv(Minv_c, rc), _bmv(Minv_k, rk)
 
     def dot(a, b):
-        return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
+        return dot_c(a[0], b[0]) + torch.sum(a[1] * b[1])
 
-    r = proj(sk.sys.b_red, sk.b_red_k)
+    r = proj(b_red_c, b_red_k)
     x = (torch.zeros_like(r[0]), torch.zeros_like(r[1]))
     z = proj(*prec(*r))
     p = z
     for _ in range(iters):
-        Sp = proj(*schur_matvec_k(sk, *p))
+        Sp = proj(*matvec(*p))
         rz = dot(r, z)
         alpha = rz / torch.clamp(dot(p, Sp), min=1e-20)
         x = (x[0] + alpha * p[0], x[1] + alpha * p[1])

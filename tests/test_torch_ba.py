@@ -53,7 +53,8 @@ def test_jacobians_and_assembly_match_reference():
     twh = T(w) * tlm.huber_weight(torch.sum(tr * tr, -1), delta)
     assert rel(twh.numpy(), wh) < 1e-5
     nb = jschur.assemble_planes(Jc, Jp, r, wh, cam_id, pt_id, C, P, pt_sorted=True)
-    tnb = tschur.assemble_planes(tJc, tJp, tr, twh, T(cam_id), T(pt_id), C, P)
+    tnb = tschur.assemble_planes(tJc, tJp, tr, twh, tschur.segment_plan(T(cam_id), C),
+                                 tschur.segment_plan(T(pt_id), P))
     assert rel(tnb.U.numpy(), nb.U) < 1e-5 and rel(tnb.V9.numpy(), nb.V9) < 1e-5
     assert rel(tnb.W18.numpy(), nb.W18) < 1e-5
     assert rel(tnb.b_c.numpy(), nb.b_c) < 1e-3 and rel(tnb.b_p.numpy(), nb.b_p) < 1e-3
@@ -84,7 +85,8 @@ def test_inv_spd_matches_reference(k):
 def _torch_planes(sysp):
     nb = sysp.blocks
     tnb = tschur.NormalBlocksP(T(nb.U), T(nb.V9), T(nb.W18), T(nb.b_c), T(nb.b_p),
-                               T(nb.cam_id), T(nb.pt_id))
+                               tschur.segment_plan(T(nb.cam_id), nb.U.shape[0]),
+                               tschur.segment_plan(T(nb.pt_id), nb.V9.shape[0]))
     return tschur.SchurSystemP(tnb, T(sysp.Vinv9), T(sysp.Ud), T(sysp.b_red))
 
 
@@ -138,7 +140,8 @@ def test_reduce_and_pcg_dense_match_planes(tp_cap):
                                                 tc[ovi], tp_[ovi], tuv[ovi])
         r2o = torch.sum(r_o * r_o, -1)
         ov_blocks = tschur.assemble_planes(Jc_o, Jp_o, r_o, tw[ovi] * tlm.huber_weight(r2o, delta),
-                                           tc[ovi], tp_[ovi], C, P)
+                                           tschur.segment_plan(tc[ovi], C),
+                                           tschur.segment_plan(tp_[ovi], P))
         ov_cost = tlm.robust_cost(r2o, tw[ovi], delta)
     else:
         assert tp_cap == 32

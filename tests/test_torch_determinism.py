@@ -4,22 +4,26 @@ localization result bit-identically, here on the CPU, each run twice in
 one process; wall-clock instrumentation (``TIMING_KEYS``) is the only
 permitted difference.
 
-What holds bit-identical on the card, and what only within a tolerance:
+What holds bit-identical on the card: everything a build and a query run.
 
-- bit-identical by design: K1-K5 and K9/K10 (each output element summed in
-  a fixed order, no atomics), so extraction and matching; K6-K8 on BA's
-  dense path (fixed-order sums, no atomics) when no observation overflows
-  the dense slots and the RANSAC draws come from a generator seeded alike
-  (``chip_smoke.py`` phase 17 runs the same dense solve twice, phase 21 a
-  checkpointed solve against an uninterrupted one);
-- within a tolerance only: the planes path of BA and the dense path's
-  overflow chain, whose ``index_add_`` on CUDA accumulates with
-  floating-point atomics in an order that changes from run to run, so two
-  runs differ in their last bits, and the incremental build can amplify
-  that (S1 in ROADMAP.md: the seed pair and the track count moved under a
-  1e-5 change of K1).  ``chip_smoke.py`` phase 29 builds the 96-frame map
-  twice through the CLI, prints which arrays differ and by how much, and
-  holds both builds to the map-quality gates.
+- K1-K5 and K9/K10 sum each output element in a fixed order, with no
+  atomics, so extraction and matching repeat bit for bit;
+- K6-K8 on BA's dense path likewise (fixed-order sums, no atomics);
+- the planes path of BA, the dense path's overflow chain and the joint
+  intrinsics system sum by segment through ``segment_sum.segment_sum``: the
+  ids sorted once per solve (``segment_sum.segment_plan``), each segment
+  summed in that order by a hand-written kernel (a warp per segment), no
+  float atomics (they were ``index_add_``, whose CUDA atomics made two
+  builds with one seed differ);
+- the RANSAC draws come from generators seeded alike.
+
+``chip_smoke.py`` asserts it on the card: phase 17 runs the same dense
+solve and the same planes solve twice, phase 21 a checkpointed solve
+against an uninterrupted one, and phase 29 builds the 96-frame map twice
+through the CLI and holds every scene array, every feature array and the
+stats (timings aside) bit-identical.  ``chip_experiments/f10_sites.py``
+lists every CUDA op of a build that accumulates with atomics (none) and
+runs the build once under ``torch.use_deterministic_algorithms``.
 """
 import numpy as np
 import pytest

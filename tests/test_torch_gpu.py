@@ -1,4 +1,5 @@
-"""sfmx_torch CUDA kernels K1-K10 against their plain PyTorch versions.
+"""sfmx_torch CUDA kernels K1-K10 and the fixed-order segment sum against
+their plain PyTorch versions.
 
 These need a card and skip without one.  The file imports neither jax nor
 sfmx, so it also runs where only the port is installed:
@@ -16,6 +17,7 @@ from sfmx_torch.kernels import match as mt
 from sfmx_torch.kernels import matching as mm
 from sfmx_torch.kernels import pairs as mp
 from sfmx_torch.kernels import scale_space as ss
+from sfmx_torch.kernels import segment_sum as segs
 from sfmx_torch.kernels import segsum as sg
 from sfmx_torch.kernels import tiles as mtl
 from sfmx_torch.solvers import lm, schur
@@ -690,10 +692,12 @@ def test_ba_solve_on_card_matches_cpu(cuda, path):
     path on the CPU: first cost rtol 1e-4, final cost within 2 %, poses and
     points within 2e-2 of a scene 25 units deep (LM amplifies summation-order
     differences along the free scale gauge, which only damping holds: the
-    planes path, all PyTorch, moves by 1.5e-3 between the card and the CPU);
-    the dense solve
+    planes path, plain PyTorch then, moved by 1.5e-3 between the card and
+    the CPU); the dense solve
     launches K7 once, K6 cg_iters+2 times and K8 once per LM iteration, plus
-    K8 once for the first cost (two CUDA kernels each for K6 and K7)."""
+    K8 once for the first cost (two CUDA kernels each for K6 and K7); the
+    planes path and the overflow chain launch the segment sum as counted
+    below."""
     C, P, O, tp, longs = BA_SHAPES[1]
     prob = ba_problem(C, P, O, seed=3, long_tracks=longs, perturb=0.03)
     lens = np.bincount(prob["pt_id"], minlength=P)
@@ -707,12 +711,16 @@ def test_ba_solve_on_card_matches_cpu(cuda, path):
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES.counts)
     ref = lm.ba_solve(*(torch.as_tensor(v) for v in prob.values()), iters=iters, cg_iters=cg, **kw)
+    # the fixed-order segment sums: planes, 4 in the assembly, 1 in the
+    # reduction, 2 a CG step, 1 in the back-substitution; the overflow
+    # chain, 4 in its assembly and 2 a K6 call
     if path == "planes":
-        assert counts == {}
+        assert counts == {"segment_sum": iters * (6 + 2 * cg)}
     else:
+        ov = {"segment_sum": iters * (4 + 2 * (cg + 2))} if path == "dense-overflow" else {}
         assert counts == {"ba_assemble_fused": 2 * iters,
                           "schur_cross_matvec": 2 * iters * (cg + 2),
-                          "ba_cost_fused": iters + 1}
+                          "ba_cost_fused": iters + 1, **ov}
     cc, cr = out[3].cpu(), ref[3]
     assert abs(float(cc[0]) - float(cr[0])) <= 1e-4 * float(cr[0])
     assert abs(float(cc[-1]) - float(cr[-1])) <= 0.02 * float(cr[-1])
@@ -780,3 +788,43 @@ def test_sift_extraction_on_card_matches_cpu(cuda):
                                         oriented=True)
     share, worst = _agreeing_share(got, ref)
     assert share >= 0.95 and worst < 1e-3, (share, worst)
+
+
+@pytest.mark.parametrize("O,n,k,dtype", [(200_000, 512, 36, torch.float32),
+                                         (200_000, 20_000, 9, torch.float32),
+                                         (50_000, 1, 4, torch.float32),
+                                         (9_000, 7, 3, torch.float64),
+                                         (0, 5, 6, torch.float32)])
+def test_segment_sum_kernel_matches_plain(cuda, O, n, k, dtype):
+    """The kernel against its plain version (an f64 sum) within 1e-5 of the
+    largest sum (1e-12 in f64), its bits repeated by a second call and by the table
+    shuffled with each segment's order kept; one segment of 50,000 rows
+    takes pieces and a second launch; empty segments are zero."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, max(n - 1, 1), (O,), generator=g, device=cuda)
+    x = torch.randn((O, k), generator=g, device=cuda, dtype=dtype)
+    plan = segs.segment_plan(ids, n)
+    _build.LAUNCHES.reset()
+    got = segs.segment_sum(x, plan)
+    assert _build.LAUNCHES.get("segment_sum") == (1 if plan.seg_piece is None else 2)
+    ref = segs.segment_sum_plain(x, plan)
+    scale = max(float(ref.abs().max()), 1.0)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((got - ref).abs().max()) <= tol * scale
+    key = torch.randperm(n, generator=g, device=cuda)[ids] * max(O, 1) + torch.arange(O, device=cuda)
+    sh = torch.argsort(key)
+    assert torch.equal(got, segs.segment_sum(x, plan))
+    assert torch.equal(got, segs.segment_sum(x[sh], segs.segment_plan(ids[sh], n)))
+    if n > 1:
+        assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+def test_segment_sum_rejects_bad_inputs(cuda):
+    ids = torch.randint(0, 4, (100,), device=cuda)
+    plan = segs.segment_plan(ids, 4)
+    with pytest.raises(ValueError):
+        segs.segment_sum(torch.randn(100, 3), plan)                    # CPU x, card plan
+    with pytest.raises(ValueError):
+        segs.segment_sum(torch.randn(99, 3, device=cuda), plan)        # rows
+    with pytest.raises(ValueError):
+        segs.segment_sum(torch.randn(100, 3, device=cuda).half(), plan)

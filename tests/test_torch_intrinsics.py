@@ -113,15 +113,16 @@ def _k_systems(params=("f", "k1"), lam=1e-3):
     group = k_idx[cam_id]
     jn = jschur.assemble_with_intrinsics(Jc, Jp, Jk, r, wj, cam_id, pt_id, group, k_idx, C, P, 1,
                                          pt_sorted=True)
-    tn = tschur.assemble_with_intrinsics(*map(T, (Jc, Jp, Jk, r, wj, cam_id, pt_id, group,
-                                                  k_idx)), C, P, 1)
+    plans = (tschur.segment_plan(T(cam_id), C), tschur.segment_plan(T(pt_id), P),
+             tschur.segment_plan(T(group), 1), tschur.segment_plan(T(k_idx), 1))
+    tn = tschur.assemble_with_intrinsics(*map(T, (Jc, Jp, Jk, r, wj)), *plans)
     return jn, tn, jschur.reduce_system_k(jn, lam), tschur.reduce_system_k(tn, lam), fixed
 
 
 def test_block_assembly_and_reduction_match_reference():
     jn, tn, js, ts, _ = _k_systems()
     # the port's pose/point part is the planes layout: V and W row-major
-    O, P = len(tn.base.cam_id), tn.base.V9.shape[0]
+    O, P = len(tn.base.cam.ids), tn.base.V9.shape[0]
     for got, ref in ((tn.base.U, jn.base.U), (tn.base.V9, np.asarray(jn.base.V).reshape(P, 9)),
                      (tn.base.W18, np.asarray(jn.base.Wc).reshape(O, 18))):
         assert rel(got.numpy(), ref) < 1e-5

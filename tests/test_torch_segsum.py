@@ -206,7 +206,8 @@ def test_overflow_chain_equals_the_unsplit_system():
     assert len(ov) > 100
     sysd = tschur.SchurSystemD(tseg.SchurMatvec(tseg.pack_rows(cut, W18), cut, vinv),
                                T(np.asarray(nbp.b_p)).T.contiguous(), None, None,
-                               W18[ov], T(cam_id)[ov], T(pt_id)[ov])
+                               W18[ov], tschur.segment_plan(T(cam_id)[ov], C),
+                               tschur.segment_plan(T(pt_id)[ov], P))
     rng = np.random.default_rng(2)
     x6 = T(rng.standard_normal((6, C)).astype(np.float32))
     for bias in (None, sysd.bp3):

@@ -192,7 +192,9 @@ def test_service_matches_reference_service(room_map, streaming, monkeypatch):
 def test_service_binary_group_and_errors(room_map):
     """A binary map serves feature requests with bits on the Hamming gather
     path (grouped apart from float requests); a request with neither image
-    nor features fails alone; shards > 1 raises (multi-GPU serving)."""
+    nor features fails alone; the same map loaded with shards=2 is split
+    and routed, and serves a float request (a routed map matches float
+    descriptors only, as the reference's)."""
     desc, mask_kf, bits_kf, obs_feat = room_map["kf"]
     scene = {f.name: np.asarray(getattr(room_map["scene"], f.name))
              for f in dataclasses.fields(room_map["scene"])}
@@ -209,8 +211,9 @@ def test_service_binary_group_and_errors(room_map):
     svc = LocalizationService(batch_window_ms=100.0, max_batch=8)
     svc.load_map("room", bmap, INTR, cfg=_pcfg(PipelineConfig, FeatureConfig, LocalizeConfig,
                                                "off"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        svc.load_map("room2", bmap, INTR, shards=2)
+    svc.load_map("room2", bmap, INTR, cfg=_pcfg(PipelineConfig, FeatureConfig, LocalizeConfig,
+                                                "off"), shards=2)
+    assert len(svc.maps["room2"][0].shards) == 2
     svc.warmup("room")
     assert svc.stats.requests == 0
 
@@ -220,13 +223,15 @@ def test_service_binary_group_and_errors(room_map):
             return await asyncio.gather(
                 svc.localize("room", q_desc[2], q_uv[2], q_mask[2], q_bits=qb),
                 svc.localize("room", q_desc[2], q_uv[2], q_mask[2]),
-                svc.localize("room"), return_exceptions=True)
+                svc.localize("room"),
+                svc.localize("room2", q_desc[2], q_uv[2], q_mask[2], q_bits=qb),
+                return_exceptions=True)
         finally:
             await svc.stop()
 
-    b, f, bad = asyncio.run(go())
+    b, f, bad, routed = asyncio.run(go())
     eye = room_map["q_poses"][2][2]
-    for o in (b, f):
+    for o in (b, f, routed):
         assert o["n_inliers"] >= 12 and np.linalg.norm(np.asarray(o["center"]) - eye) < 0.2
     assert isinstance(bad, ValueError)
 
