@@ -4,9 +4,11 @@ front-end and reconstruction paths (secondary components, the checkpointed
 final BA, the merge of two sessions and self-calibration included), the
 command line end to end, streaming, oriented and SIFT extraction, and the
 multi-device paths (routed map shards, map-sharded localization, the
-point-sharded BA and the dry run, on one card), once on one CUDA card.
+point-sharded BA and the dry run, on one card), once on one CUDA card; or
+(``--cards 4``) the multi-device paths on four cards.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
+                               python3 chip_smoke.py --cards 4 [--share-card]
 (``python3 chip_smoke.py --tune`` runs instead the sweeps behind K1's tile
 and fused-step constants, K2's tile, K3's keypoints per block, K4's landmark
 tile, ring depth and splits, K5's pairs per block and ring depth, K6's slot
@@ -229,8 +231,68 @@ Phases (each asserts; any failure exits non-zero):
  33. dry run    — ``sfmx_torch.dist.dryrun`` in one spawned NCCL rank and in
                   two gloo ranks sharing cuda:0: every multi-device path,
                   each result finite; K1-K5 launched in the NCCL run
-The last two lines are the kernel JSON and the device JSON.  K4's entry
-holds the serving batch's shape and, as ``tail_ms``, ``tail_bound_ms`` and
+
+With ``--cards 4`` only the device check, the build and phases 34-40 run
+(the map-scale map, the serving frames and 64 frames of the walk are made
+as above first).  It needs four visible cards of one name and power limit
+(fewer raise, with the count), spawns worlds of 4, 2 and 1 ranks, each
+rank on its own card under NCCL (``sfmx_torch.dist.worlds``: the parent
+writes each phase's inputs once under .chip_scratch/multicard/, every rank
+writes its results there), and holds them against one card in the parent.
+``--share-card`` rehearses the same on one card, every rank a gloo rank on
+cuda:0 (routed shards on cuda:0).
+ 34. cards and links — each card's name and power limit, peer access, the
+                  NCCL version; all_reduce and all_gather_into_tensor at 1
+                  and 64 MB at world size 4 (exact sums, the seeded sum and
+                  gather on every rank): ms and bus bandwidth, the
+                  yardstick of phases 36, 38 and 39
+ 35. dp extraction — the walk's first 64 VGA frames through
+                  ``dryrun.extract_data_parallel`` (16 a card): every rank's
+                  gathered features equal, and equal to one card's of all
+                  64; each card's quarter bit-equal to cuda:0's extraction
+                  of its 16 frames; K1-K3 on every rank; frames/s at world
+                  sizes 1 and 4
+ 36. map-sharded — phase 31's batch through ``localize_batch_sharded`` on 4
+                  (then 2) landmark shards, one a card, the noise drawn on
+                  the CPU from a seed: every rank's merged (s1, global
+                  index, s2) equal to the unsplit K4, the poses to
+                  ``localize_batch_streaming``'s (n_inliers equal, centers
+                  within 1e-5 m), median error < 0.2 m, K4 on every rank;
+                  K4's device ms a card, the all-gather and the all-reduce
+                  against phase 34
+ 37. serve cards — phase 10's bursts through ``load_map(shards=4)`` (shard
+                  i on cuda:i) under phase 30's gates, and the same four
+                  shards all on cuda:0, in turns (cards, cuda:0, cuda:0,
+                  cards); then the same with traffic spread over the
+                  building (4 held-out frames of each of its 8 rooms, every
+                  shard gets queries: median < 0.2 m, >= 75 % localized);
+                  requests/s, p50/p95/p99, each card's busy share over two
+                  profiled bursts and the time two or more cards were busy
+                  at once
+ 38. block cards — config 4 through ``ba_solve_blocked`` at world sizes 1,
+                  2, 4: final cost within 5 % of the planes ``ba_solve`` on
+                  one card and falling, R, t, X, costs bit-identical on
+                  every rank, the joint focal within 5 px, the checkpointed
+                  solve resumed after its first chunk bit-identical, the
+                  same solve twice bit-identical; LM iterations/s, the
+                  layout's host time and stats, a CG step's collectives
+                  against phase 34, the segment sum's device time on a
+                  rank's block
+ 39. obs cards  — ``dist_ba.make_ba_step`` on ba-512 (10 LM x 30 CG) at
+                  world sizes 1, 2, 4: ranks bit-identical, final cost
+                  within 5 % of the planes ``ba_solve``; LM iterations/s, a
+                  CG step's two all-reduces against phase 34
+ 40. dry run    — ``dryrun.dryrun`` at world size 4 on the cards (every
+                  rank's results equal, K1-K5 on each) beside
+                  ``python -m sfmx_torch.dist.dryrun --world-size 4
+                  --device cpu``: BA costs and the map-sharded t within
+                  1e-4
+That mode's last two lines are a ``multicard`` JSON (each phase's numbers,
+each rank's launches by world and phase, the serving run's) and the
+device JSON; the cards' nvidia-smi lines come before them.
+
+The default run's last two lines are the kernel JSON and the device JSON.
+K4's entry holds the serving batch's shape and, as ``tail_ms``, ``tail_bound_ms`` and
 ``splits``, the burst tail's; ``ms`` times the wrapper on f32 descriptors
 (its casts to bf16 included, as the main path calls it), ``launch_ms`` the
 launches alone on bf16 inputs.  Every kernel
@@ -992,12 +1054,17 @@ def phase_k4_wrapper(desc, mask, lmap, smi: str, reps: int = 5) -> None:
         + f"); host {host_us:.1f} us per call; on {smi}")
 
 
-def phase_serve(lmap, frames, own_frames, dev, smi: str, shards: int = 1) -> dict:
+def phase_serve(lmap, frames, own_frames, dev, smi: str, shards: int = 1, devices=None,
+                busy: bool = False) -> dict:
     """Concurrent image requests through the service on the map-scale map
-    (phase 10), or (phase 30, ``shards`` > 1) on the same map split into
-    that many shards, every shard on the one card, each batch's queries
-    routed by retrieval and localized per shard group on the gather path.
-    Returns the kernel launches of the serving run."""
+    (phase 10), or (phases 30 and 37, ``shards`` > 1) on the same map split
+    into that many shards, each on its card (the visible cards, round-robin:
+    cuda:0 alone on one card) or, with ``devices``, every shard on those
+    (the router built directly), each batch's queries routed by retrieval
+    and localized per shard group on the gather path.  ``busy``: then two
+    more bursts under torch.profiler for each card's busy share
+    (``card_busy``).  Returns the kernel launches of the serving run and
+    its numbers."""
     import asyncio
 
     import torch
@@ -1012,8 +1079,13 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str, shards: int = 1) -> dic
 
     cfg = PipelineConfig()
     svc = server.LocalizationService(batch_window_ms=SERVE_WINDOW_MS, max_batch=SERVE_BATCH)
-    tag = "[serve]" if shards == 1 else "[serve-shards]"
+    tag = "[serve]" if shards == 1 else "[serve-shards]" if devices is None else \
+        f"[serve-shards on {','.join(str(d) for d in devices)}]"
     svc.load_map("building", lmap, INTR, cfg=cfg, shards=shards)
+    if devices is not None:
+        _obj, intr0, cfg0 = svc.maps["building"]
+        svc.maps["building"] = (server.MapShardRouter.build(
+            server.split_localization_map(lmap, shards), devices), intr0, cfg0)
     t0 = time.perf_counter()
     svc.warmup("building")
     log(f"{tag} warmup (one batch of {SERVE_BATCH} blank images) {time.perf_counter() - t0:.2f} s")
@@ -1041,11 +1113,11 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str, shards: int = 1) -> dic
     reqs += [dict(image=img, intr=own_intr) for img in own_frames]
     eyes = [eye for _R, _t, eye in poses] + [eye for _R, _t, eye in serve_poses()[:len(own_frames)]]
 
-    async def run():
+    async def run(bursts: int = N_BURSTS):
         await svc.start()
         try:
             outs, walls = [], []
-            for _ in range(N_BURSTS):
+            for _ in range(bursts):
                 t0 = time.perf_counter()
                 outs += await asyncio.gather(*[svc.localize("building", **r) for r in reqs])
                 walls.append(time.perf_counter() - t0)
@@ -1109,9 +1181,13 @@ def phase_serve(lmap, frames, own_frames, dev, smi: str, shards: int = 1) -> dic
     assert np.all(own < MEDIAN_GATE_M), f"serve: own-intrinsics requests off by {own}"
     assert all((o["source"] == 0) == (r.get("prior") is None)
                for o, r in zip(outs, reqs_all)), "serve: unexpected fusion sources"
-    return launches, {"requests_per_s": n / sum(walls), "p50_ms": st["p50_latency_ms"],
-                      "p95_ms": st["p95_latency_ms"], "p99_ms": st["p99_latency_ms"],
-                      "median_err_m": float(np.median(errs)), "localized": n_loc / n}
+    numbers = {"requests_per_s": n / sum(walls), "p50_ms": st["p50_latency_ms"],
+               "p95_ms": st["p95_latency_ms"], "p99_ms": st["p99_latency_ms"],
+               "median_err_m": float(np.median(errs)), "localized": n_loc / n,
+               "batches": st["batches"]}
+    if busy:
+        numbers.update(card_busy(lambda: asyncio.run(run(2)), tag, smi))
+    return launches, numbers
 
 
 def streaming_path(frames, lmap, dev):
@@ -3399,6 +3475,585 @@ def phase_dryrun(dev, smi: str) -> dict:
     return out["nccl"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Four cards (phases 34-40): python3 chip_smoke.py --cards 4
+# ---------------------------------------------------------------------------
+
+MC_DIR = ROOT / ".chip_scratch" / "multicard"
+COLLECTIVE_MB, COLLECTIVE_REPS = (1, 64), 20   # phase 34: the yardstick sizes
+N_DP_FRAMES, DP_REPS = 64, 5    # phase 35: the walk's first frames, 16 a card on 4
+NOISE_SEED = 5                  # phase 36: the batch's RANSAC noise, drawn on the CPU
+SHARD_WORLDS, BA_WORLDS = (4, 2), (1, 2, 4)     # phases 36; 38-39
+OBS_RTOL = 0.05                 # phase 39 against the planes ba_solve (tests/test_torch_dist.py)
+DRYRUN_RTOL = 1e-4              # phase 40: the card's world against the CPU's
+EXTRACT_KERNELS = ("diffuse_segment", "response_levels", "describe_upright")
+
+
+def phase_cards(n: int, share: bool) -> dict:
+    """Phase 34 (the cards): ``n`` visible cards of one name and power
+    limit (``share``: the rehearsal on one card, every rank on cuda:0);
+    each card's name and limit, peer access between each pair, NCCL's
+    version."""
+    import torch
+
+    count = torch.cuda.device_count()
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()
+    if share:
+        log(f"[cards] rehearsal: every rank on cuda:0 under gloo; {count} visible: {lines}")
+        return {"cards": lines[:1], "count": count, "peer": [], "nccl": None}
+    if count < n or len(lines) < n:
+        raise RuntimeError(f"--cards {n} needs {n} cards: torch.cuda.device_count() is {count}, "
+                           f"nvidia-smi lists {len(lines)}")
+    if len(set(lines[:n])) != 1:
+        raise RuntimeError(f"--cards {n} needs {n} cards of one name and power limit: {lines[:n]}")
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n)]
+            for i in range(n)]
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    for i in range(n):
+        log(f"[cards] cuda:{i} {torch.cuda.get_device_name(i)}; {lines[i]}; peer access "
+            f"{[j for j in range(n) if peer[i][j] and j != i]}")
+    log(f"[cards] {count} visible, NCCL {nccl}")
+    return {"cards": lines[:n], "count": count, "peer": peer, "nccl": nccl}
+
+
+def write_multicard_inputs(big, serve_frames, walk, dev) -> dict:
+    """The inputs of phases 34-39, each built once and written to
+    ``MC_DIR/<phase>.npz`` for every world's ranks.  Returns what the
+    parent's comparators need."""
+    import shutil
+
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.dist.worlds import BA_NAMES
+    from tests import smoke_scenes
+
+    shutil.rmtree(MC_DIR, ignore_errors=True)      # no checkpoint of an earlier run
+    MC_DIR.mkdir(parents=True)
+    cfg = PipelineConfig()
+    fc, lc = cfg.features, cfg.localize
+    save = lambda name, **z: np.savez(MC_DIR / f"{name}.npz", **z)
+    save("collectives", sizes_mb=np.asarray(COLLECTIVE_MB, np.float64), reps=COLLECTIVE_REPS,
+         x=np.random.default_rng(3).standard_normal((4, 4096)).astype(np.float32))
+    save("extract", frames=walk, reps=DP_REPS, sigma=np.asarray(fc.sigma_levels, np.int64),
+         max_keypoints=fc.max_keypoints, threshold=fc.threshold, n_octaves=fc.n_octaves)
+    f = extract_features(serve_frames[:SERVE_BATCH], cfg, dev)
+    q = dict(q_desc=f.desc.cpu().numpy(), q_uv=f.kp.uv.cpu().numpy(),
+             q_mask=f.kp.mask.cpu().numpy(), intr=INTR, k_hyp=lc.k_hypotheses,
+             noise_seed=NOISE_SEED, px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh,
+             min_inliers=lc.min_inliers)
+    save("sharded", **{f"map_{k}": v for k, v in big.to_numpy().items()}, **q)
+    prob4 = dict(zip(BA_NAMES, block_problem(np.random.default_rng(1))))
+    save("block_ba", **prob4, iters=CONFIG4["iters"], cg_iters=CONFIG4["cg_iters"], twice=True,
+         k_iters=CONFIG4["k_iters"], ckpt_every=CONFIG4["ckpt_every"],
+         ckpt_dir=str(MC_DIR / "ckpt"))
+    p = smoke_scenes.ba_problem(BA_SHAPE["C"], BA_SHAPE["P"], BA_SHAPE["O"], seed=0, window=16,
+                                perturb=0.03)
+    ba512 = dict(zip(BA_NAMES, (p[k] for k in ("intr", "k_idx", "R", "t", "X", "cam_id", "pt_id",
+                                               "uv", "w_valid", "fixed_cam_mask"))))
+    save("obs_ba", **ba512, iters=BA_SHAPE["lm_iters"], cg_iters=BA_SHAPE["cg_iters"])
+    return {"q": q, "block": prob4, "ba512": ba512}
+
+
+def run_worlds(n: int, device: str, backend) -> dict:
+    """One spawned world of each size, each running its phases; returns
+    {world size: {phase: every rank's results}}."""
+    from sfmx_torch.dist import mesh, worlds
+
+    plan = {n: ("collectives", "extract", "sharded", "block_ba", "obs_ba", "dryrun"),
+            2: ("sharded", "block_ba", "obs_ba"), 1: ("extract", "block_ba", "obs_ba")}
+    out = {}
+    for w, phases in plan.items():
+        t0 = time.perf_counter()
+        mesh.spawn(worlds.world, w, str(MC_DIR), phases, device=device, backend=backend,
+                   timeout=120, join_timeout=600)
+        out[w] = {p: worlds.load_results(MC_DIR, p, w) for p in phases}
+        log(f"[worlds] world of {w} ({backend or 'nccl'} on {device}): {', '.join(phases)} in "
+            f"{time.perf_counter() - t0:.1f} s (processes included)")
+    return out
+
+
+def rank_launches(outs) -> list[dict]:
+    return [json.loads(str(o["launches"])) for o in outs]
+
+
+def check_launched(tag: str, per_rank: list[dict], kernels) -> list[dict]:
+    """Every rank launched each of ``kernels`` at least once."""
+    for r, g in enumerate(per_rank):
+        assert all(g.get(k, 0) > 0 for k in kernels), f"{tag}: rank {r} launches {g}"
+    return per_rank
+
+
+def check_kernels(tag: str, outs, kernels) -> list[dict]:
+    return check_launched(tag, rank_launches(outs), kernels)
+
+
+def same_bits(outs, keys) -> bool:
+    from sfmx_torch.dist.worlds import digest
+
+    return len({digest(*(o[k] for k in keys)) for o in outs}) == 1
+
+
+def busbw(links: dict, op: str) -> float:
+    """Phase 34's bus bandwidth of ``op`` ("ar", "ag") at its largest size,
+    in bytes/s."""
+    return links[f"{op}_{COLLECTIVE_MB[-1]}mb"]["busbw_gb_s"] * 1e9
+
+
+def phase_links(res, smi: str) -> dict:
+    """Phase 34 (the links): all_reduce and all_gather_into_tensor at 1 MB
+    and 64 MB at world size 4: every rank's sums exact, its seeded sum
+    equal on every rank and within 1e-5 of numpy's, its gather the rows in
+    rank order; ms and bus bandwidth by rank 0's CUDA events."""
+    x = np.random.default_rng(3).standard_normal((len(res), 4096)).astype(np.float32)
+    for r, o in enumerate(res):
+        assert all(bool(o[f"ar_exact_{mb:g}"]) for mb in COLLECTIVE_MB), r
+        np.testing.assert_allclose(o["sum"], x.sum(0), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(o["gather"], x.reshape(-1))
+    assert same_bits(res, ("sum",)), "the ranks' all_reduce results differ"
+    o = res[0]
+    out = {f"{op}_{mb}mb": {"ms": float(o[f"{op}_ms_{mb:g}"]),
+                            "busbw_gb_s": float(o[f"{op}_busbw_{mb:g}"])}
+           for op in ("ar", "ag") for mb in COLLECTIVE_MB}
+    log(f"[links] world of {len(res)}: " + "; ".join(
+        f"{'all_reduce' if k.startswith('ar') else 'all_gather'} {k[3:]} {v['ms']:.4f} ms, "
+        f"bus {v['busbw_gb_s']:.1f} GB/s" for k, v in out.items()) + f"; on {smi}")
+    return out
+
+
+def phase_dp_extract(res, walk, dev, smi: str) -> dict:
+    """Phase 35: the walk's 64 frames through ``extract_data_parallel``
+    (16 a card at world size 4): every rank's gathered features equal, the
+    world of one's too; each card's quarter bit-equal to this card's
+    ``extract_features`` of the same 16 frames (``PipelineConfig()``, the
+    ranks' settings); K1-K3 on every rank; frames/s at world sizes 1 and
+    4."""
+    from sfmx_torch.cli.config import PipelineConfig
+    from sfmx_torch.cli.pipeline import extract_features
+    from sfmx_torch.dist.worlds import digest
+
+    w4, w1 = res[4]["extract"], res[1]["extract"]
+    n, m = len(w4), N_DP_FRAMES // len(w4)
+    quarters = []
+    for r in range(n):
+        f = extract_features(walk[r * m:(r + 1) * m], PipelineConfig(), dev)
+        quarters.append(digest(f.desc, f.kp.uv, f.kp.mask) == str(w4[r]["own_digest"]))
+        if not quarters[-1]:
+            log(f"[dp] quarter {r}: max |desc - one card's| "
+                f"{np.abs(w4[0]['desc'][r * m:(r + 1) * m] - f.desc.cpu().numpy()).max():.3e}")
+    launches = check_kernels("dp extraction", w4, EXTRACT_KERNELS)
+    check_kernels("dp extraction, world of 1", w1, EXTRACT_KERNELS)
+    rate = {w: N_DP_FRAMES / float(res[w]["extract"][0]["wall_s"]) for w in (1, n)}
+    log(f"[dp] {N_DP_FRAMES} VGA frames, {m} a card: every rank's gathered features equal "
+        f"{same_bits(w4, ('digest',))}, equal to one card's extraction of all "
+        f"{N_DP_FRAMES} {str(w1[0]['digest']) == str(w4[0]['digest'])}; each quarter bit-equal "
+        f"to this card's extraction of its {m} frames {quarters}; {rate[1]:.1f} frames/s on one "
+        f"card, "
+        f"{rate[n]:.1f} on {n} ({rate[n] / rate[1]:.2f}x; median of {DP_REPS}, gathers "
+        f"included); launches per rank {json.dumps(launches)}; on {smi}")
+    assert same_bits(w4, ("digest",)), "the ranks' gathered features differ"
+    assert str(w1[0]["digest"]) == str(w4[0]["digest"]), "world 4 differs from world 1"
+    assert all(quarters), f"a card's quarter differs from the one-card extraction: {quarters}"
+    return {"frames_per_s": {str(w): v for w, v in rate.items()}, "quarters_equal": quarters}
+
+
+def phase_map_sharded(res, big, q, links: dict, dev, smi: str) -> dict:
+    """Phase 36: one B=32 VGA batch (32,768 query rows) through
+    ``localize_batch_sharded`` against the map-scale map in 4 (then 2)
+    landmark shards, one a card, the RANSAC noise drawn on the CPU: every
+    rank's merged (s1, global index, s2) equal to the unsplit K4 on one
+    card, the poses to ``localize_batch_streaming``'s with the same noise
+    (n_inliers equal, centers within 1e-5 m), median center error < 0.2 m,
+    K4 on every rank; K4's device ms on each card, the all-gather and the
+    all-reduce of a batch against phase 34's bandwidth."""
+    import torch
+
+    from sfmx_torch.dist.worlds import query_noise
+    from sfmx_torch.localize import sharded as sh
+    from sfmx_torch.localize.localize import localize_batch_streaming
+
+    T = lambda k: torch.as_tensor(q[k], device=dev)
+    B, K, D = q["q_desc"].shape
+    qf = torch.where(T("q_mask")[..., None], T("q_desc"), 0.0).reshape(B * K, D)
+    ref = [x.cpu().numpy() for x in
+           sh.local_top2(qf, torch.where(big.lm_alive[:, None], big.lm_desc, 0.0))]
+    kw = dict(k_hypotheses=int(q["k_hyp"]), px_thresh=float(q["px_thresh"]),
+              sim_thresh=float(q["sim_thresh"]), min_inliers=int(q["min_inliers"]))
+    st = localize_batch_streaming(big, T("q_desc"), T("q_uv"), T("q_mask"), T("intr"),
+                                  gumbel=query_noise(q, dev), **kw)
+    st_c, st_n = st.center.cpu().numpy(), st.n_inliers.cpu().numpy()
+    eyes = np.stack([e for _R, _t, e in serve_poses()[:B]])
+    out = {}
+    for n in SHARD_WORLDS:
+        outs = res[n]["sharded"]
+        fields = [{name: bool(np.array_equal(o[key], r.astype(o[key].dtype)))
+                   for name, key, r in zip(("s1", "i1", "s2"), ("s1", "ig", "s2"), ref)}
+                  for o in outs]
+        dc = max(float(np.linalg.norm(o["res_center"] - st_c, axis=-1).max()) for o in outs)
+        inl = all(np.array_equal(o["res_n_inliers"], st_n) for o in outs)
+        err = float(np.median(np.linalg.norm(outs[0]["res_center"] - eyes, axis=-1)))
+        launches = check_kernels(f"sharded, world of {n}", outs, ("match_top2",))
+        k4 = [float(o["k4_ms"]) for o in outs]
+        o = outs[0]
+        ag_bw = float(o["ag_bytes"]) * (n - 1) / n / busbw(links, "ag") * 1e3
+        ar_bw = float(o["ar_bytes"]) * 2 * (n - 1) / n / busbw(links, "ar") \
+            * 1e3
+        log(f"[map-sharded] world of {n}: {int(o['p_local'])} landmarks a card; merged fields "
+            f"equal to the unsplit K4 {json.dumps(fields)}; n_inliers equal to streaming {inl}, "
+            f"centers max {dc:.2e} m apart, median error {err:.4f} m; batch "
+            f"{float(o['wall_s']) * 1e3:.2f} ms; K4 device ms a card "
+            f"{', '.join(f'{v:.4f}' for v in k4)}; all-gather {int(o['ag_bytes'])} B "
+            f"{float(o['ag_ms']):.4f} ms (at phase 34's {COLLECTIVE_MB[-1]} MB bus rate "
+            f"{ag_bw:.4f}), all-reduce "
+            f"{int(o['ar_bytes'])} B {float(o['ar_ms']):.4f} ms ({ar_bw:.4f}); launches "
+            f"{json.dumps(launches)}; on {smi}")
+        assert all(all(f.values()) for f in fields), f"sharded top-2 differs: {fields}"
+        assert inl and dc <= 1e-5, f"sharded poses differ from streaming: {dc}"
+        assert same_bits(outs, ("res_R", "res_t", "res_n_inliers", "idx")), "ranks differ"
+        assert err < MEDIAN_GATE_M, err
+        out[str(n)] = {"batch_ms": float(o["wall_s"]) * 1e3, "k4_device_ms": k4,
+                       "allgather_ms": float(o["ag_ms"]), "allgather_bytes": int(o["ag_bytes"]),
+                       "allreduce_ms": float(o["ar_ms"]), "allreduce_bytes": int(o["ar_bytes"]),
+                       "median_err_m": err}
+    return out
+
+
+def card_busy(run, tag: str, smi: str) -> dict:
+    """``run()`` (two serving bursts) under torch.profiler: each card's busy
+    share of the wall (its kernels' and copies' merged intervals), and the
+    time two or more cards were busy at once (the sum of the cards' busy
+    time less their union)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def merged(iv):
+        total, end = 0.0, -np.inf
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    iv: dict[int, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            iv.setdefault(e.device_index, []).append((e.time_range.start, e.time_range.end))
+    assert iv, "the profiler recorded no device time"
+    busy = {d: merged(v) for d, v in sorted(iv.items())}
+    overlap = sum(busy.values()) - merged([x for v in iv.values() for x in v])
+    share = {f"cuda:{d}": b / wall_us for d, b in busy.items()}
+    log(f"{tag} profiled 2 bursts in {wall_us / 1e6:.3f} s: busy share "
+        f"{json.dumps({k: round(v, 4) for k, v in share.items()})}; two or more cards busy at "
+        f"once {overlap / 1e3:.2f} ms ({overlap / wall_us:.4f} of the wall); on {smi}")
+    return {"busy_share": share, "overlap_ms": overlap / 1e3}
+
+
+SPREAD_PER_ROOM = 4             # phase 37: held-out frames of each room of the map-scale map
+
+
+def spread_frames(n_rooms: int):
+    """SPREAD_PER_ROOM held-out VGA frames of each room of the map-scale map
+    (the query room and its distractors, as ``phase_map_scale`` renders
+    them) and their true camera centers in the map's frame."""
+    from tests import smoke_scenes
+
+    frames, eyes = [], []
+    for r in range(n_rooms):
+        poses = serve_poses()[r::n_rooms][:SPREAD_PER_ROOM]
+        frames.append(smoke_scenes.render_parallel(0 if r == 0 else 1000 + r, poses, W_IMG,
+                                                   H_IMG, FOCAL, RENDER_WORKERS))
+        eyes += [eye + np.array([20.0 * r, 0.0, 0.0]) for _R, _t, eye in poses]
+    return np.concatenate(frames), np.stack(eyes)
+
+
+def serve_spread(big, frames, eyes, n: int, dev, smi: str, devices=None) -> dict:
+    """Traffic spread over the building: 8 bursts of the rooms' frames as
+    concurrent image requests through ``load_map(shards=n)`` (or, with
+    ``devices``, the router built directly on those), the queries each
+    shard received, the serve gates (median < 0.2 m, >= 75 % localized),
+    requests/s, p50/p99 and each card's busy share over two profiled
+    bursts."""
+    import asyncio
+
+    import sfmx_torch.serve.server as server
+    from sfmx_torch.cli.config import PipelineConfig
+
+    svc = server.LocalizationService(batch_window_ms=SERVE_WINDOW_MS, max_batch=SERVE_BATCH)
+    svc.load_map("building", big, INTR, cfg=PipelineConfig(), shards=n)
+    if devices is not None:
+        _obj, intr0, cfg0 = svc.maps["building"]
+        svc.maps["building"] = (server.MapShardRouter.build(
+            server.split_localization_map(big, n), devices), intr0, cfg0)
+    router = svc.maps["building"][0]
+    routed, route = [], router.route
+
+    def recording(q_desc, q_mask):
+        shard_of = route(q_desc, q_mask)
+        routed.append(shard_of)
+        return shard_of
+
+    router.route = recording
+    svc.warmup("building")
+
+    async def run(bursts: int):
+        await svc.start()
+        try:
+            outs, walls = [], []
+            for _ in range(bursts):
+                t0 = time.perf_counter()
+                outs += await asyncio.gather(*[svc.localize("building", image=f) for f in frames])
+                walls.append(time.perf_counter() - t0)
+            return outs, walls
+        finally:
+            await svc.stop()
+
+    routed.clear()
+    outs, walls = asyncio.run(run(N_BURSTS))
+    st = svc.stats.snapshot()
+    errs = np.array([np.linalg.norm(np.asarray(o["center"]) - e)
+                     for o, e in zip(outs, np.tile(eyes, (N_BURSTS, 1)))])
+    n_loc = sum(o["n_inliers"] >= PipelineConfig().localize.min_inliers for o in outs)
+    per_shard = np.bincount(np.concatenate(routed), minlength=n).tolist()
+    tag = "[serve-spread]" if devices is None else \
+        f"[serve-spread on {','.join(str(d) for d in devices)}]"
+    out = {"requests_per_s": len(outs) / sum(walls), "p50_ms": st["p50_latency_ms"],
+           "p99_ms": st["p99_latency_ms"], "median_err_m": float(np.median(errs)),
+           "localized": n_loc / len(outs), "per_shard": per_shard,
+           **card_busy(lambda: asyncio.run(run(2)), tag, smi)}
+    log(f"{tag} {N_BURSTS} bursts of {len(frames)} requests spread over the rooms, shards on "
+        f"{[str(d) for d in router.devices]}: queries a shard {per_shard}; "
+        f"{out['requests_per_s']:.2f} requests/s, p50 {out['p50_ms']:.1f} ms, p99 "
+        f"{out['p99_ms']:.1f} ms; median center error {out['median_err_m']:.4f} m; {n_loc}/"
+        f"{len(outs)} localized; on {smi}")
+    assert out["median_err_m"] < MEDIAN_GATE_M, out
+    assert n_loc >= 0.75 * len(outs), (n_loc, len(outs))
+    assert all(c > 0 for c in per_shard), f"a shard received no query: {per_shard}"
+    return out
+
+
+def phase_serve_cards(big, serve_frames, own_frames, n: int, dev, smi: str) -> tuple:
+    """Phase 37: phase 10's bursts through ``load_map(shards=4)``, shard i on
+    cuda:i, under phase 30's gates, and the same four shards all on cuda:0
+    (the router built directly), in turns (cards, cuda:0, cuda:0, cards);
+    then traffic spread over the building's rooms (``serve_spread``) the
+    same way.  Requests/s, latency percentiles, each card's busy share and
+    the time two or more cards were busy at once, for each run.  Returns
+    the first run's launches and the runs' numbers."""
+    turns = ("cards", "cuda0", "cuda0", "cards")
+    where = lambda tag: [dev] if tag == "cuda0" else None
+    runs = {"phase10": {"cards": [], "cuda0": []}, "spread": {"cards": [], "cuda0": []}}
+    launches = None
+    for tag in turns:
+        got, numbers = phase_serve(big, serve_frames, own_frames, dev, smi, shards=n, busy=True,
+                                   devices=where(tag))
+        launches = launches or got
+        runs["phase10"][tag].append(numbers)
+    frames, eyes = spread_frames(big.kf_gdesc.shape[0] // N_KEYFRAMES)
+    for tag in turns:
+        runs["spread"][tag].append(serve_spread(big, frames, eyes, n, dev, smi,
+                                                devices=where(tag)))
+    for traffic, r in runs.items():
+        pick = lambda tag, key: " / ".join(f"{x[key]:.2f}" for x in r[tag])
+        log(f"[serve-cards] {traffic} traffic, {n} shards on {n} cards "
+            f"{pick('cards', 'requests_per_s')} requests/s (p50 {pick('cards', 'p50_ms')} ms) "
+            f"against {pick('cuda0', 'requests_per_s')} (p50 {pick('cuda0', 'p50_ms')} ms) with "
+            f"all {n} on cuda:0, in turns (cards, cuda:0, cuda:0, cards); on {smi}")
+    for k in EXTRACT_KERNELS:
+        assert launches.get(k, 0) > 0, launches
+    return launches, runs
+
+
+def phase_block_cards(res, prob: dict, links: dict, dev, smi: str) -> dict:
+    """Phase 38: config 4 through ``ba_solve_blocked`` at world sizes 1, 2
+    and 4, a card a rank: final cost within BLOCK_RTOL of the planes
+    ``ba_solve`` on one card, the cost falls, R, t, X and costs
+    bit-identical on every rank, the segment-sum kernel on every rank; at
+    every size the joint focal within 5 px of 500 and the checkpointed
+    solve resumed after its first chunk bit-identical to the uninterrupted
+    one; the same solve twice bit-identical.  LM iterations/s, the
+    layout's host time and stats, a CG step's reduce-scatter and all-gather
+    against phase 34, the segment sum's device time on a rank's block."""
+    import torch
+
+    from sfmx_torch.dist.worlds import BA_NAMES
+    from sfmx_torch.solvers import lm
+
+    it, cg = CONFIG4["iters"], CONFIG4["cg_iters"]
+    T = [torch.as_tensor(prob[k], device=dev) for k in BA_NAMES]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *_, costs_p = lm.ba_solve(*T, iters=it, cg_iters=cg)
+    costs_p = costs_p.cpu().numpy()
+    wall_p = time.perf_counter() - t0
+    log(f"[block-cards] config 4 planes ba_solve on cuda:0: {it / wall_p:.2f} LM iterations/s, "
+        f"cost -> {float(costs_p[-1]):.6f}")
+    out = {"planes_iters_per_s": it / wall_p}
+    for n in BA_WORLDS:
+        outs = res[n]["block_ba"]
+        o = outs[0]
+        c = o["costs"]
+        rel = abs(float(c[-1]) - float(costs_p[-1])) / float(costs_p[-1])
+        launches = check_kernels(f"block BA, world of {n}", outs, ("segment_sum",))
+        stats = json.loads(str(o["stats"]))
+        cg_bytes = int(o["rs_bytes"]) + int(o["ag_bytes"])
+        bw_ms = cg_bytes * (n - 1) / n / busbw(links, "ag") * 1e3
+        row = {"iters_per_s": it / float(o["wall_s"]), "rel_cost": rel,
+               "layout_s": float(o["layout_s"]), "stats": stats,
+               "repeat_bit_identical": bool(o["repeat_equal"]), "focal": float(o["k_intr"][0, 0]),
+               "cg_step": {"rs_bytes": int(o["rs_bytes"]), "ag_bytes": int(o["ag_bytes"]),
+                           "rs_ms": float(o["rs_ms"]), "ag_ms": float(o["ag_ms"]),
+                           "dots_ms": float(o["dots_ms"])},
+               "segsum_ms": {"cam": float(o["segsum_cam_ms"]), "pt": float(o["segsum_pt_ms"]),
+                             "obs_block": int(o["obs_block"])}}
+        out[str(n)] = row
+        log(f"[block-cards] world of {n}: {row['iters_per_s']:.2f} LM iterations/s "
+            f"({float(o['wall_s']):.3f} s for {it}), cost {float(c[0]):.4f} -> "
+            f"{float(c[-1]):.6f} ({rel:.2e} from planes); layout {row['layout_s']:.2f} s on the "
+            f"host of every rank, {json.dumps(stats)}; same solve twice bit-identical "
+            f"{row['repeat_bit_identical']}; joint focal {row['focal']:.3f} in "
+            f"{float(o['k_wall_s']):.3f} s; checkpoint resume bit-identical "
+            f"{bool(o['ck_equal'])}; a CG step: reduce-scatter {int(o['rs_bytes'])} B "
+            f"{float(o['rs_ms']):.4f} ms, all-gather {int(o['ag_bytes'])} B "
+            f"{float(o['ag_ms']):.4f} ms (both at phase 34's {COLLECTIVE_MB[-1]} MB bus rate "
+            f"{bw_ms:.4f} ms), "
+            f"three dots {float(o['dots_ms']):.4f} ms; segment sum on a block of "
+            f"{int(o['obs_block'])} observations: cameras (x36) {float(o['segsum_cam_ms']):.4f} "
+            f"ms, points (x12) {float(o['segsum_pt_ms']):.4f} ms device; launches rank 0 "
+            f"{json.dumps(launches[0])}; on {smi}")
+        assert same_bits(outs, ("R", "t", "X", "costs")), f"world of {n}: ranks differ"
+        assert same_bits(outs, ("k_intr", "k_costs", "ck_costs", "ck_resumed_costs"))
+        assert all(bool(o["repeat_equal"]) for o in outs), f"world of {n}: a rerun differs"
+        assert np.isfinite(c).all() and c[-1] <= c[0], c
+        assert rel <= BLOCK_RTOL, f"world of {n}: blocked and planes costs differ by {rel}"
+        assert abs(row["focal"] - 500.0) < 5.0, row["focal"]
+        assert bool(o["ck_equal"]) and len(o["ck_costs"]) == it + 1 \
+            and len(o["ck_resumed_costs"]) == it - CONFIG4["ckpt_every"] + 1
+    return out
+
+
+def phase_obs_cards(res, prob: dict, links: dict, dev, smi: str) -> dict:
+    """Phase 39: ``dist_ba.make_ba_step`` on the ba-512 problem (10 LM x 30
+    CG) at world sizes 1, 2 and 4: ranks bit-identical, the final cost
+    within OBS_RTOL of the planes ``ba_solve`` on one card, the segment-sum
+    kernel on every rank; LM iterations/s and a CG step's two all-reduces
+    against phase 34."""
+    import torch
+
+    from sfmx_torch.dist.worlds import BA_NAMES
+    from sfmx_torch.solvers import lm
+
+    it, cg = BA_SHAPE["lm_iters"], BA_SHAPE["cg_iters"]
+    T = [torch.as_tensor(prob[k], device=dev) for k in BA_NAMES]
+    *_, costs_p = lm.ba_solve(*T, iters=it, cg_iters=cg)
+    costs_p = costs_p.cpu().numpy()
+    out = {}
+    for n in BA_WORLDS:
+        outs = res[n]["obs_ba"]
+        o = outs[0]
+        c = o["costs"]
+        rel = abs(float(c[-1]) - float(costs_p[-1])) / float(costs_p[-1])
+        launches = check_kernels(f"obs BA, world of {n}", outs, ("segment_sum",))
+        bw_ms = int(o["ar_bytes"]) * 2 * (n - 1) / n / busbw(links, "ar") * 1e3
+        out[str(n)] = {"iters_per_s": it / float(o["wall_s"]), "rel_cost": rel,
+                       "allreduce_bytes": int(o["ar_bytes"]), "allreduce_ms": float(o["ar_ms"])}
+        log(f"[obs-cards] world of {n}: {it / float(o['wall_s']):.2f} LM iterations/s, cost "
+            f"{float(c[0]):.4f} -> {float(c[-1]):.6f} ({rel:.2e} from the planes ba_solve's "
+            f"{float(costs_p[-1]):.6f}); a CG step's two all-reduces {int(o['ar_bytes'])} B "
+            f"{float(o['ar_ms']):.4f} ms (at phase 34's {COLLECTIVE_MB[-1]} MB bus rate "
+            f"{bw_ms:.4f} ms); launches "
+            f"rank 0 {json.dumps(launches[0])}; on {smi}")
+        assert same_bits(outs, ("R", "t", "X", "costs")), f"world of {n}: ranks differ"
+        assert np.isfinite(c).all() and rel <= OBS_RTOL, (c, rel)
+    return out
+
+
+def phase_dryrun_cards(res, smi: str) -> dict:
+    """Phase 40: the dry run at world size 4 under NCCL (every rank's
+    results equal, K1-K5 launched on each) beside
+    ``python -m sfmx_torch.dist.dryrun --world-size 4 --device cpu``
+    (gloo): each BA's costs within DRYRUN_RTOL relative, the map-sharded
+    t within DRYRUN_RTOL."""
+    outs = [json.loads(str(o["json"])) for o in res]
+    assert all(o == outs[0] for o in outs[1:]), "the dry run's ranks differ"
+    check_launched("dry run", [o["launches"] for o in outs],
+                   EXTRACT_KERNELS + ("match_top2", "match_pairs_fused"))
+    path = MC_DIR / "dryrun_cpu.json"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "sfmx_torch.dist.dryrun", "--world-size",
+                    str(len(outs)), "--device", "cpu", "--out", str(path)], cwd=ROOT,
+                   check=True, timeout=900)
+    cpu = json.loads(path.read_text())
+    card = outs[0]
+    rel = {k: float(np.max(np.abs(np.subtract(card[k]["costs"], cpu[k]["costs"]))
+                           / np.abs(cpu[k]["costs"])))
+           for k in ("block_ba", "block_ba_k", "obs_ba")}
+    dt = float(np.abs(np.subtract(card["sharded"]["t"], cpu["sharded"]["t"])).max())
+    log(f"[dryrun-cards] world of {len(outs)} on the cards: ranks equal; CPU world (gloo) "
+        f"{time.perf_counter() - t0:.1f} s; costs card vs CPU, largest relative difference "
+        f"{json.dumps(rel)}; map-sharded t {dt:.2e} apart; launches rank 0 "
+        f"{json.dumps(card['launches'])}; on {smi}")
+    assert all(v <= DRYRUN_RTOL for v in rel.values()), rel
+    assert dt <= DRYRUN_RTOL, dt
+    return {"cost_rel": rel, "t_diff": dt}
+
+
+def main_cards(n: int, share: bool) -> int:
+    """``--cards n``: phases 34-40 after the device check and the build."""
+    import torch
+
+    name, smi = phase_device()
+    sys.path.insert(0, str(ROOT))
+    import sfmx_torch  # noqa: F401  (sets the TF32 flags)
+    from examples import room
+    from tests import smoke_scenes
+
+    if n != 4:
+        raise ValueError(f"--cards takes 4 (the worlds of 4, 2 and 1), not {n}")
+    cards = phase_cards(n, share)
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    tex = room.RoomTexture(seed=0)
+    _lmap, kf = phase_map(tex, dev)
+    big = phase_map_scale(kf, dev)
+    t0 = time.perf_counter()
+    serve_frames = smoke_scenes.render_parallel(0, serve_poses(), W_IMG, H_IMG, FOCAL,
+                                                RENDER_WORKERS)
+    own_frames = smoke_scenes.render_parallel(0, serve_poses()[:2], W_IMG, H_IMG, FOCAL_OWN,
+                                              RENDER_WORKERS)
+    walk = smoke_scenes.render_parallel(0, smoke_scenes.loop_walk_poses(N_BAND)[:N_DP_FRAMES],
+                                        W_IMG, H_IMG, FOCAL, RENDER_WORKERS)
+    inputs = write_multicard_inputs(big, serve_frames, walk, dev)
+    log(f"[inputs] serve and walk frames rendered, phase inputs written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = run_worlds(n, "cuda:0" if share else "cuda", "gloo" if share else None)
+    phases = {"34": {**cards, "links": phase_links(res[n]["collectives"], smi)}}
+    links = phases["34"]["links"]
+    phases["35"] = phase_dp_extract(res, walk, dev, smi)
+    phases["36"] = phase_map_sharded(res, big, inputs["q"], links, dev, smi)
+    serve_launches, phases["37"] = phase_serve_cards(big, serve_frames, own_frames, n, dev, smi)
+    phases["38"] = phase_block_cards(res, inputs["block"], links, dev, smi)
+    phases["39"] = phase_obs_cards(res, inputs["ba512"], links, dev, smi)
+    phases["40"] = phase_dryrun_cards(res[n]["dryrun"], smi)
+    launches = {f"world{w}": {p: ([json.loads(str(o["json"]))["launches"] for o in outs]
+                                  if p == "dryrun" else rank_launches(outs))
+                              for p, outs in by_phase.items() if p != "collectives"}
+                for w, by_phase in res.items()}
+    launches["serve"] = serve_launches
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
+    for line in cards["cards"]:
+        print(line)
+    print(json.dumps({"multicard": {"phases": phases, "launches": launches}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def phase_tune(dev, smi: str) -> None:
     """The sweeps behind the kernels' constants.  K1: the four segments of
     the default config on a 32-image VGA batch and on its half-size octave,
@@ -3629,6 +4284,9 @@ def phase_tune(dev, smi: str) -> None:
 def main() -> int:
     import torch
 
+    if "--cards" in sys.argv[1:]:
+        return main_cards(int(sys.argv[sys.argv.index("--cards") + 1]),
+                          "--share-card" in sys.argv[1:])
     name, smi = phase_device()
     sys.path.insert(0, str(ROOT))
     import sfmx_torch  # noqa: F401  (sets the TF32 flags)

@@ -27,6 +27,7 @@ from ..kernels import _build, features
 from ..kernels.matching import match_pairs_float_auto
 from ..localize.localize import LocalizationMap
 from ..localize.sharded import localize_batch_sharded, shard_localization_map
+from ..solvers.ransac import gumbel_noise
 from . import block_ba, dist_ba, mesh
 from .halo import all_gather_cat
 
@@ -67,6 +68,48 @@ def example_map(P: int, C: int, D: int, Kc: int, seed: int, device) -> Localizat
         kf_lm_mask=np.ones((C, Kc), bool)), device)
 
 
+def sharded_case(n: int):
+    """The map-sharded localization case of a world of n: a random map of
+    64*n landmarks on the CPU, two queries of 64 features (numpy) and their
+    RANSAC noise (64 hypotheses), drawn on the CPU from seeds, so a world
+    on cards, one on CPUs and a single process all see the same draw."""
+    lmap = example_map(64 * n, 8, 128, 32, 3, "cpu")
+    rng = np.random.default_rng(4)
+    Kq = 64
+    qd = rng.standard_normal((2, Kq, 128)).astype(np.float32)
+    qd /= np.linalg.norm(qd, axis=-1, keepdims=True)
+    quv = rng.uniform(0, 320, (2, Kq, 2)).astype(np.float32)
+    intr = np.asarray([280.0, 280.0, 160.0, 120.0, 0, 0, 0], np.float32)
+    g = gumbel_noise((2, 64, Kq), device="cpu", generator=torch.Generator().manual_seed(2))
+    return lmap, qd, quv, np.ones((2, Kq), bool), intr, g
+
+
+def obs_problem(n: int, rng: np.random.Generator):
+    """The observation-sharded BA's problem of a world of n: 8 cameras 4 m
+    from 4n points, each point seen by four distinct cameras (16n
+    observations, as the reference's dry run has; its 16n random (camera,
+    point) pairs over 64 points leave most points with one view or none, a
+    system so underdetermined that one ulp of the input moves the cost
+    after a step by ~1e-3, and no two devices agree), 0.5 px of noise.
+    Returns (X, t, cam, pt, uv), drawing X, t and the cameras from rng."""
+    C, P = 8, 4 * n
+    X = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
+    t = np.concatenate([rng.uniform(-0.2, 0.2, (C, 2)), np.full((C, 1), 4.0)], 1)
+    cam = np.concatenate([rng.permutation(C)[:4] for _ in range(P)])
+    pt = np.repeat(np.arange(P), 4)
+    Xc = X[pt] + t[cam]
+    uv = (Xc[:, :2] / Xc[:, 2:3]) * 100.0 + np.asarray([32.0, 24.0]) + _pixel_noise(9, len(pt))
+    return X, t, cam, pt, uv
+
+
+def _pixel_noise(seed: int, n: int) -> np.ndarray:
+    """0.5 px of seeded Gaussian noise on n observations (from a generator
+    of its own, so the block problem's draws stay the reference's): from
+    the exact truth a solve's costs are rounding, ~1e-14, which no two
+    devices reproduce; from the noise they are the solve's."""
+    return 0.5 * np.random.default_rng(seed).standard_normal((n, 2))
+
+
 def _finite(name: str, *xs) -> None:
     for x in xs:
         a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -91,7 +134,8 @@ def dryrun(rank: int, world_size: int, device: torch.device, out_path: str | Non
     lo = (cam.astype(np.int64) * (P - 20) // C).astype(np.int64)
     pt = (lo + rng.integers(0, 20, O)).astype(np.int32)
     Xc = X[pt] + t[cam]
-    uv = ((Xc[:, :2] / Xc[:, 2:3]) * 100.0 + np.asarray([32.0, 24.0])).astype(np.float32)
+    uv = ((Xc[:, :2] / Xc[:, 2:3]) * 100.0 + np.asarray([32.0, 24.0])
+          + _pixel_noise(8, O)).astype(np.float32)
     intr = np.asarray([[100.0, 100.0, 32.0, 24.0, 0, 0, 0]], np.float32)
     fixed = np.zeros(C, bool)
     fixed[0] = True
@@ -110,14 +154,9 @@ def dryrun(rank: int, world_size: int, device: torch.device, out_path: str | Non
 
     # ---- observation-sharded BA -------------------------------------------
     rng = np.random.default_rng(0)
-    C, P, O = 8, 64, 16 * n
     T = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    Xo = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
-    to = np.concatenate([rng.uniform(-0.2, 0.2, (C, 2)), np.full((C, 1), 4.0)], 1)
-    cam = rng.integers(0, C, O)
-    pt = rng.integers(0, P, O)
-    Xc = Xo[pt] + to[cam]
-    uv = (Xc[:, :2] / Xc[:, 2:3]) * 100.0 + np.asarray([32.0, 24.0])
+    Xo, to, cam, pt, uv = obs_problem(n, rng)
+    C, O = to.shape[0], cam.shape[0]
     fixed = np.zeros(C, bool)
     fixed[0] = True
     step = dist_ba.make_ba_step(iters=2, cg_iters=5)
@@ -138,16 +177,10 @@ def dryrun(rank: int, world_size: int, device: torch.device, out_path: str | Non
     out["dp"] = {"keypoints": int(feats.kp.mask.sum()), "matches": int(res.valid.sum())}
 
     # ---- map-sharded localization (the landmark pool over the ranks) --------
-    lmap = example_map(64 * n, 8, 128, 32, 3, "cpu")
+    lmap, qd, quv, qm, intr_q, g = sharded_case(n)
     shard = shard_localization_map(lmap, rank, n, device)
-    Kq = 64
-    qd = rng.standard_normal((2, Kq, 128)).astype(np.float32)
-    qd /= np.linalg.norm(qd, axis=-1, keepdims=True)
-    quv = rng.uniform(0, 320, (2, Kq, 2)).astype(np.float32)
-    gen = torch.Generator(device=device).manual_seed(2)
-    sres, idx = localize_batch_sharded(
-        shard, T(qd), T(quv), T(np.ones((2, Kq)), torch.bool),
-        T([280.0, 280.0, 160.0, 120.0, 0, 0, 0]), generator=gen, k_hypotheses=64)
+    sres, idx = localize_batch_sharded(shard, T(qd), T(quv), T(qm, torch.bool), T(intr_q),
+                                       gumbel=g.to(device), k_hypotheses=g.shape[1])
     _finite("map-sharded localization", sres.t, sres.R)
     assert tuple(sres.t.shape) == (2, 3)
     out["sharded"] = {"t": sres.t.tolist(), "idx_max": int(idx.max())}

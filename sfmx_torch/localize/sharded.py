@@ -78,21 +78,14 @@ def merge_shards(s1, i1, s2, p_local: int):
     return out
 
 
-def localize_batch_sharded(lmap: LocalizationMap, q_desc: torch.Tensor, q_uv: torch.Tensor,
-                           q_mask: torch.Tensor, intr: torch.Tensor, *,
-                           generator: torch.Generator | None = None,
-                           gumbel: torch.Tensor | None = None, k_hypotheses: int = 1024,
-                           px_thresh: float = 4.0, ratio: float = 0.85,
-                           sim_thresh: float = 0.75, min_inliers: int = 12,
-                           pnp_solver: str = "dlt6", group=None):
-    """Batch localization against the process group's sharded landmark pool.
-
-    ``lmap`` is this rank's shard (``shard_localization_map``); the queries
-    (B,K,D), (B,K,2), (B,K), the intrinsics ((7,) or (B,7)) and the RANSAC
-    noise ``gumbel`` (B,k_hypotheses,K) — or a ``generator`` seeded alike on
-    every rank — are the same on every rank.  Returns (LocalizeResult,
-    (B,K) global landmark index of each query feature's best match), the
-    same on every rank."""
+def sharded_top2(lmap: LocalizationMap, q_desc: torch.Tensor, q_mask: torch.Tensor,
+                 group=None):
+    """The exact global top-2 of the (B,K,D) queries over the process
+    group's sharded pool: this rank's K4 on its shard, one all-gather of
+    the shards' (s1, i1, s2) merged in shard order, and the winners'
+    positions and alive flags from their owning rank by one all-reduce.
+    Returns (s1, global index, s2) (B*K,) and X3 (B*K,3), alive (B*K,),
+    the same on every rank."""
     B, K, D = q_desc.shape
     rank = dist.get_rank(group)
     q = torch.where(q_mask[..., None], q_desc, torch.zeros_like(q_desc)).reshape(B * K, D)
@@ -109,8 +102,26 @@ def localize_batch_sharded(lmap: LocalizationMap, q_desc: torch.Tensor, q_uv: to
     loc = torch.cat([lmap.X[i1.long()], lmap.lm_alive[i1.long()].to(torch.float32)[:, None]],
                     dim=1)
     got = all_reduce_sum(torch.where(mine, loc, torch.zeros_like(loc)), group)
-    X3, alive = got[:, :3], got[:, 3] > 0
+    return s1g, ig, s2g, got[:, :3], got[:, 3] > 0
 
+
+def localize_batch_sharded(lmap: LocalizationMap, q_desc: torch.Tensor, q_uv: torch.Tensor,
+                           q_mask: torch.Tensor, intr: torch.Tensor, *,
+                           generator: torch.Generator | None = None,
+                           gumbel: torch.Tensor | None = None, k_hypotheses: int = 1024,
+                           px_thresh: float = 4.0, ratio: float = 0.85,
+                           sim_thresh: float = 0.75, min_inliers: int = 12,
+                           pnp_solver: str = "dlt6", group=None):
+    """Batch localization against the process group's sharded landmark pool.
+
+    ``lmap`` is this rank's shard (``shard_localization_map``); the queries
+    (B,K,D), (B,K,2), (B,K), the intrinsics ((7,) or (B,7)) and the RANSAC
+    noise ``gumbel`` (B,k_hypotheses,K) — or a ``generator`` seeded alike on
+    every rank — are the same on every rank.  Returns (LocalizeResult,
+    (B,K) global landmark index of each query feature's best match), the
+    same on every rank."""
+    B, K, _ = q_desc.shape
+    s1g, ig, s2g, X3, alive = sharded_top2(lmap, q_desc, q_mask, group)
     res = pose_from_top2(s1g, s2g, X3.reshape(B, K, 3), alive.reshape(B, K), q_uv, q_mask, intr,
                          generator=generator, gumbel=gumbel, k_hypotheses=k_hypotheses,
                          px_thresh=px_thresh, ratio=ratio, sim_thresh=sim_thresh,

@@ -114,7 +114,8 @@ class MapShardRouter:
     def localize_batch(self, q_desc, q_uv, q_mask, intr, *,
                        generators: dict | None = None,
                        gumbel: Callable[[int, np.ndarray], torch.Tensor] | None = None,
-                       q_bits=None, **localize_kw) -> tuple[LocalizeResult, np.ndarray]:
+                       q_bits=None, shard: int | None = None,
+                       **localize_kw) -> tuple[LocalizeResult, np.ndarray]:
         """Route, group by shard, localize each group with ONE
         ``localize_batch`` call on its shard's device.
 
@@ -124,11 +125,12 @@ class MapShardRouter:
         noise of a group comes from ``gumbel(shard id, query indices)``
         ((n, k_hypotheses, K)) when given, else from ``generators[device]``
         (the default generator where None).  q_bits go to shards that carry
-        ``lm_bits``.  Returns (results on the host in input order, shard id
-        per query).
+        ``lm_bits``.  ``shard``: every query to that shard, unrouted (a
+        warm-up reaches each shard's device so).  Returns (results on the
+        host in input order, shard id per query).
         """
         B = q_desc.shape[0]
-        shard_of = self.route(q_desc, q_mask)
+        shard_of = self.route(q_desc, q_mask) if shard is None else np.full(B, shard)
         intr_b = intr.expand(B, 7) if intr.ndim == 1 else intr
         pending = []   # (query indices, result on its device) per shard group
         for sid in np.unique(shard_of):

@@ -130,15 +130,21 @@ class LocalizationService:
 
     def warmup(self, map_id: str):
         """Build the kernels and run one batch of blank images through
-        extraction and localization, so the first request pays no build."""
+        extraction and localization, so the first request pays no build.
+        A routed map localizes the batch on every shard: routing would send
+        it to one, and a card's first call pays its own initialization
+        (seconds, a mid-traffic stall on that card's first query)."""
         lmap, _intr, cfg = self.maps[map_id]
         W, H = cfg.resize_to
         reqs = [_Request(map_id, None, None, image=np.zeros((H, W), np.float32))
                 for _ in range(self.max_batch)]
         self._extract(reqs)
-        self._localize_group(map_id, reqs, self._binary(reqs[0]))
-        if _device(lmap).type == "cuda":
-            torch.cuda.synchronize()
+        routed = isinstance(lmap, MapShardRouter)
+        for shard in range(len(lmap.shards)) if routed else [None]:
+            self._localize_group(map_id, reqs, self._binary(reqs[0]), shard=shard)
+        for dev in set(lmap.devices) if routed else [lmap.X.device]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     async def start(self):
         self._queue = asyncio.Queue()
@@ -247,7 +253,8 @@ class LocalizationService:
                 out.extend((r, e) for r in reqs)
         return out
 
-    def _localize_group(self, map_id: str, reqs: list[_Request], binary: bool):
+    def _localize_group(self, map_id: str, reqs: list[_Request], binary: bool,
+                        shard: int | None = None):
         lmap, intr0, cfg = self.maps[map_id]
         lc = cfg.localize
         dev = _device(lmap)
@@ -267,7 +274,7 @@ class LocalizationService:
             # multi-device map: each query to its shard's device, one
             # localize_batch call per shard group, every kwarg forwarded
             res, _ = lmap.localize_batch(q_desc, q_uv, q_mask, intr_b, generators=self._gens,
-                                         **kw)
+                                         shard=shard, **kw)
         elif binary:
             q_bits = torch.stack([torch.as_tensor(np.asarray(r.q_bits).view(np.int32))
                                   if isinstance(r.q_bits, np.ndarray) else r.q_bits

@@ -140,3 +140,29 @@ def test_service_shard_routed_map(room_map):  # noqa: F811
     for o, eye in zip(outs, eyes):
         assert o["n_inliers"] > 20
         assert np.linalg.norm(np.asarray(o["center"]) - eye) < 0.2
+
+
+def test_warmup_reaches_every_shard(room_map, monkeypatch):  # noqa: F811
+    """``warmup`` of a routed map localizes its blank batch on every shard:
+    routing alone sends blank images (no features) to one shard, and on
+    four cards the first query to each other card then paid its lazy
+    initialization mid-traffic (``chip_smoke.py --cards 4`` phase 37:
+    p99 2.9 s in the first run of traffic spread over the shards)."""
+    import sfmx_torch.serve.router as router_mod
+
+    svc = LocalizationService(batch_window_ms=2.0, max_batch=4)
+    svc.load_map("demo", room_map["tmap"], INTR, shards=3)
+    router = svc.maps["demo"][0]
+    seen = []
+    real = router_mod.localize_batch
+
+    def recording(lmap, *a, **kw):
+        seen.append(next(i for i, s in enumerate(router.shards) if s is lmap))
+        return real(lmap, *a, **kw)
+
+    monkeypatch.setattr(router_mod, "localize_batch", recording)
+    blank = np.zeros((1, *room_map["q"][0].shape[1:]), np.float32)
+    assert set(router.route(torch.from_numpy(blank), torch.zeros(1, blank.shape[1], dtype=bool))) \
+        == {0}
+    svc.warmup("demo")
+    assert sorted(seen) == [0, 1, 2]

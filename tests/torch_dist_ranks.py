@@ -106,3 +106,11 @@ def sharded_rank(rank: int, n: int, dev, inp: str) -> None:
                                       gumbel=T("gumbel"), k_hypotheses=int(z["k_hyp"]))
     _save(inp, rank, idx=idx, n_alive=shard.lm_alive.sum(), p_local=shard.X.shape[0],
           **{f"res_{k}": v for k, v in res._asdict().items()})
+
+
+def multicard_rank(rank: int, n: int, dev, in_dir: str, phases: tuple) -> None:
+    """``sfmx_torch.dist.worlds.world``: the four-card run's phases, here on
+    one thread per rank."""
+    from sfmx_torch.dist import worlds
+
+    worlds.world(rank, n, dev, in_dir, phases)
