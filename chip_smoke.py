@@ -4,8 +4,9 @@ front-end and reconstruction paths (secondary components, the checkpointed
 final BA, the merge of two sessions and self-calibration included), the
 command line end to end, streaming, oriented and SIFT extraction, and the
 multi-device paths (routed map shards, map-sharded localization, the
-point-sharded BA and the dry run, on one card), once on one CUDA card; or
-(``--cards 4``) the multi-device paths on four cards.
+point-sharded BA and the dry run, on one card) and the port of bench.py
+(``sfmx_torch.bench``), once on one CUDA card; or (``--cards 4``) the
+multi-device paths on four cards.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
                                python3 chip_smoke.py --cards 4 [--share-card]
@@ -35,8 +36,7 @@ Phases (each asserts; any failure exits non-zero):
                   default PipelineConfig (gather path; kernel launch counts
                   are taken around it), the 0.2 m median-error gate; then 4
                   of them on the card against the plain path on the CPU with
-                  the same RANSAC noise, and the gather-path tripwire of
-                  bench.py on the port
+                  the same RANSAC noise (bench.py's tripwire runs in phase 41)
   6. rate       — steady-state gather-path frames/s (extraction + localize)
   7. tracking, p3p, binary — the 16 frames through ``localize_sequence``
                   (most must be tracked), with ``pnp_solver="p3p"`` and with
@@ -231,6 +231,19 @@ Phases (each asserts; any failure exits non-zero):
  33. dry run    — ``sfmx_torch.dist.dryrun`` in one spawned NCCL rank and in
                   two gloo ranks sharing cuda:0: every multi-device path,
                   each result finite; K1-K5 launched in the NCCL run
+ 41. bench      — ``sfmx_torch.bench.main`` in this process (bench.py's
+                  functions at bench.py's shapes, the tripwire first; its
+                  two JSON lines, then the bench line again prefixed
+                  ``bench``): every rate finite and > 0, the map build's
+                  registration gate (>= 90 %, raised inside), each
+                  function's launches (counted from 0 for it): K4 in the
+                  tripwire and the streaming bench, K1-K3 in the headline,
+                  extract and build, K5 in both matching benches and the
+                  build, K6-K8 in the BA bench; then K4 at the streaming
+                  bench's 8,192 query rows x 100,352 landmarks and K5 at the
+                  matching bench's 512 random pairs (K = 512) against their
+                  plain versions on those inputs (phases 9 and 14's
+                  tolerances)
 
 With ``--cards 4`` only the device check, the build and phases 34-40 run
 (the map-scale map, the serving frames and 64 frames of the walk are made
@@ -695,28 +708,6 @@ def phase_crosscheck(frames, lmap, dev, n: int = 4):
             f"inliers {a['n_inliers']} vs {b['n_inliers']}")
         assert dc < 0.03, f"query {i}: card and plain centers {dc} m apart"
         assert abs(a["n_inliers"] - b["n_inliers"]) <= max(2, 0.03 * b["n_inliers"])
-
-
-def phase_tripwire(dev):
-    """bench.py's gather-path accuracy tripwire, on the port."""
-    import torch
-
-    from sfmx_torch.localize.localize import LocalizationMap, localize_query
-    from tests.smoke_scenes import tripwire_case
-
-    cols, q_desc, q_uv, intr = tripwire_case()
-    K = len(q_uv)
-    t = lambda a: torch.as_tensor(a, device=dev)
-    res = localize_query(LocalizationMap.from_numpy(cols, dev), t(q_desc), t(q_uv),
-                         t(np.ones(K, bool)), t(intr),
-                         generator=torch.Generator(device=dev).manual_seed(7),
-                         top_k_kf=8, m_cap=2048, k_hypotheses=512)
-    n_inl, conf = int(res.n_inliers), float(res.confidence)
-    terr = float(torch.linalg.vector_norm(res.t))
-    rerr = float(torch.linalg.matrix_norm(res.R - torch.eye(3, device=dev)))
-    log(f"[tripwire] gather path: {n_inl} inliers (gate >= {K // 2}), confidence {conf:.3f}, "
-        f"|t| {terr:.2e} (gate < 0.05), |R-I| {rerr:.2e} (gate < 0.02)")
-    assert n_inl >= K // 2 and conf > 0.5 and terr < 0.05 and rerr < 0.02, "tripwire failed"
 
 
 def query_path(frames, lmap, dev):
@@ -3449,6 +3440,86 @@ def phase_block_ba(dev, smi: str) -> None:
         dist.destroy_process_group()
 
 
+# phase 41: the kernels each bench function must launch (counted from 0 for it)
+BENCH_NEEDS = {
+    "accuracy_tripwire": ("match_top2",),
+    "tpu_frames_per_s": ("diffuse_segment", "response_levels", "describe_upright"),
+    "extract_stream_fps": ("diffuse_segment", "response_levels", "describe_upright"),
+    "map_build_fps": ("diffuse_segment", "response_levels", "describe_upright",
+                      "match_pairs_fused"),
+    "matching_throughput": ("match_pairs_fused",),
+    "matching_throughput_band": ("match_pairs_fused",),
+    "ba_throughput": ("schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused"),
+    "streaming_localize_fps": ("match_top2",),
+}
+BENCH_RATES = ("value", "compile_s", "peak_bf16_tflops", "hbm_gbps", "matching_pairs_per_s",
+               "matching_mfu", "matching_band_pairs_per_s", "matching_band_mfu",
+               "ba_lm_iters_per_s", "ba_hbm_roofline_frac", "streaming_localize_fps",
+               "tracking_fps", "geometric_verify_pairs_per_s", "extract_fps", "serving_p95_ms",
+               "map_build_fps")
+
+
+def phase_bench(dev, smi: str) -> dict:
+    """Phase 41.  ``sfmx_torch.bench.main`` (the port of bench.py) in this
+    process on the card: its tripwire, every rate finite and > 0, the map
+    build's registration gate (it raises below 90 %), the kernels each
+    function must launch; then K4 at the streaming bench's 8,192 query rows
+    x 100,352 landmarks and K5 at the matching bench's 512 random pairs
+    (K = 512) against their plain versions on the bench's own inputs, with
+    the tolerances of phases 9 and 14.  Returns the bench's launches, summed
+    over its functions."""
+    import torch
+    import torch.nn.functional as TF
+
+    from sfmx_torch import bench
+    from sfmx_torch.core.masking import round_up
+    from sfmx_torch.kernels import match as mt
+    from sfmx_torch.kernels.matching import match_pairs_float
+    from sfmx_torch.kernels.pairs import match_pairs_fused
+    from tests.smoke_scenes import pair_near_ties
+
+    t0 = time.perf_counter()
+    line, launches = bench.main(dev)
+    wall = time.perf_counter() - t0
+    log(f"bench {json.dumps(line)}")
+    log(f"[bench] {wall:.1f} s in all; launches per function {json.dumps(launches)}; on {smi}")
+    bad = [k for k in BENCH_RATES if not (np.isfinite(line[k]) and line[k] > 0)]
+    assert not bad, f"bench: rates not finite and positive: {bad}"
+    assert line["device"]["count"] == torch.cuda.device_count(), line["device"]
+    for fn, need in BENCH_NEEDS.items():
+        got = launches[fn]
+        assert all(got.get(k, 0) > 0 for k in need), f"bench {fn}: launches {got}, needs {need}"
+
+    # K4 on the streaming bench's inputs, padded and masked as the wrapper does
+    lmap, q_desc, _uv, q_mask = bench.streaming_inputs(dev)
+    a = torch.where(q_mask.reshape(-1)[:, None], q_desc.reshape(-1, q_desc.shape[-1]), 0.0)
+    a = TF.pad(a, (0, 0, 0, round_up(a.shape[0], 256) - a.shape[0]))
+    b = torch.where(lmap.lm_alive[:, None], lmap.lm_desc, 0.0)
+    b = TF.pad(b, (0, 0, 0, round_up(b.shape[0], 2048) - b.shape[0]))
+    got, ref = mt.match_top2(a, b), mt.match_top2_plain(a, b)
+    torch.cuda.synchronize()
+    tol = KERNELS["match_top2"][2]
+    err = max(float((got[0] - ref[0]).abs().max()), float((got[2] - ref[2]).abs().max()))
+    clear = (ref[0] - ref[2]) > tol
+    n_bad = int((got[1] != ref[1])[clear].sum())
+    log(f"[bench K4] match_top2 {tuple(a.shape)} x {tuple(b.shape)}, "
+        f"{mt.split_plan(a.shape[0], b.shape[0])[0]} split(s): max_abs_err {err:.3e} (tol "
+        f"{tol:.0e}); index mismatches {n_bad} outside near-ties ({int(clear.sum())} rows), "
+        f"{int((got[1] != ref[1])[~clear].sum())} among {int((~clear).sum())} near-tie rows")
+    assert err <= tol and n_bad == 0, "K4 disagrees with its plain version at bench.py's inputs"
+
+    # K5 on the matching bench's inputs (match_pairs_float_auto's ratio, 0.8)
+    descs, masks, pairs = bench.matching_inputs(dev)
+    near = pair_near_ties(descs, masks, pairs.cpu().numpy(), 0.8, NEAR_TIE)
+    check_matcher(f"bench K5 {len(pairs)} pairs K={descs.shape[1]}",
+                  match_pairs_fused(descs, masks, pairs), match_pairs_float(descs, masks, pairs),
+                  near)
+    total = {}
+    for got in launches.values():
+        add_launches(total, got)
+    return total
+
+
 def phase_dryrun(dev, smi: str) -> dict:
     """Phase 33.  ``sfmx_torch.dist.dryrun`` (every multi-device path once:
     block BA, joint-intrinsics block BA, the observation-sharded step,
@@ -4307,7 +4378,6 @@ def main() -> int:
     lmap, kf = phase_map(tex, dev)
     frames, launches = phase_queries(tex, lmap, dev)
     phase_crosscheck(frames, lmap, dev)
-    phase_tripwire(dev)
     extract, localize = query_path(frames, lmap, dev)
     wall = phase_rate(extract, localize, len(frames), smi)
     if profile:
@@ -4369,12 +4439,15 @@ def main() -> int:
     rest_paths["sharded"], k4_shard_ms = phase_sharded(big, serve_frames, dev, smi)
     phase_block_ba(dev, smi)
     rest_paths["dryrun"] = phase_dryrun(dev, smi)
+    # bench.py's functions on the port (phase 41): each counted from 0
+    rest_paths["bench"] = phase_bench(dev, smi)
     kstats["match_top2"]["shard_ms"] = {str(n): v for n, v in k4_shard_ms.items()}
     ext = ("diffuse_segment", "response_levels", "describe_upright")
     ba = ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused")
     rest_need = {"cli": ext + ba, "streaming": ext + ba, "oriented": ext[:2], "sift": ba,
                  "determinism": ext + ba, "serve shards": ext, "sharded": ("match_top2",),
-                 "dryrun": ext + ("match_top2", "match_pairs_fused")}
+                 "dryrun": ext + ("match_top2", "match_pairs_fused"),
+                 "bench": ext + ("match_top2",) + ba}
     for tag, got in rest_paths.items():
         log(f"[counters] {tag} launches {json.dumps(got)}")
         assert all(got.get(k, 0) > 0 for k in rest_need[tag]), f"{tag}: launches {got}"

@@ -1,6 +1,6 @@
 """The port's command line (port of ``sfmx.cli.main``):
 ``python -m sfmx_torch.cli.main <command> ...`` with build-map, localize,
-merge, serve, georeference, evaluate, export, bundle and unbundle.
+merge, serve, georeference, evaluate, export, bench, bundle and unbundle.
 
 Every subcommand takes ``--device`` (default ``cuda``); without a card and
 without ``--device cpu`` it fails with torch's own error.  Each command's
@@ -24,7 +24,8 @@ seeds one ``torch.Generator`` on the device from ``s`` (0 for a command), so
 its draws are not the reference's.  Not ported: the compile-cache plumbing
 (``--cache``/``--no-cache`` of ``bundle``, the ``jax_cache`` member of a
 bundle, ``_merge_cache``, ``_enable_compile_cache``), which ships or pins
-XLA's compile cache, and ``bench``, which runs the TPU ``bench.py``.
+XLA's compile cache.  ``bench`` runs ``sfmx_torch.bench`` (the port of
+``bench.py``) in this process.
 """
 from __future__ import annotations
 
@@ -382,6 +383,12 @@ def cmd_export(args):
 # ---------------------------------------------------------------------------
 
 
+def cmd_bench(args):
+    from .. import bench
+
+    bench.main(args.device)
+
+
 def cmd_bundle(args):
     """Package a deployable artifact: the map's store, its serving map and
     its features (the map artifacts only; no compile cache)."""
@@ -417,8 +424,7 @@ def cmd_unbundle(args):
 # ---------------------------------------------------------------------------
 
 _NOT_PORTED = ("Not in the port: the compile-cache flags of bundle (--cache, --no-cache) and "
-               "the bundle's jax_cache member ship or pin XLA's compile cache, and bench "
-               "runs the TPU bench.py.")
+               "the bundle's jax_cache member ship or pin XLA's compile cache.")
 
 
 def main(argv=None):
@@ -486,6 +492,8 @@ def main(argv=None):
     x.add_argument("map")
     x.add_argument("-o", "--output", default=None)
     x.add_argument("--frustum-scale", type=float, default=0.15)
+
+    add("bench", cmd_bench, help="run the benchmark (bench.py's metrics) on the device")
 
     bd = add("bundle", cmd_bundle, help="package the map artifacts for deployment",
              description="Package the map artifacts (store, .lmap, .feats.npz). "

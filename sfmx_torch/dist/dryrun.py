@@ -23,9 +23,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..bench import example_map
 from ..kernels import _build, features
 from ..kernels.matching import match_pairs_float_auto
-from ..localize.localize import LocalizationMap
 from ..localize.sharded import localize_batch_sharded, shard_localization_map
 from ..solvers.ransac import gumbel_noise
 from . import block_ba, dist_ba, mesh
@@ -51,21 +51,6 @@ def extract_data_parallel(images: np.ndarray, device, group=None, **kw) -> featu
 
     return features.Features(features.Keypoints(*(cat(x) for x in f.kp)), cat(f.desc),
                              cat(f.desc_bits))
-
-
-def example_map(P: int, C: int, D: int, Kc: int, seed: int, device) -> LocalizationMap:
-    """A random unit-descriptor map (``__graft_entry__._example_map``)."""
-    rng = np.random.default_rng(seed)
-    lm_desc = rng.standard_normal((P, D)).astype(np.float32)
-    lm_desc /= np.linalg.norm(lm_desc, axis=1, keepdims=True)
-    kf_g = rng.standard_normal((C, D)).astype(np.float32)
-    kf_g /= np.linalg.norm(kf_g, axis=1, keepdims=True)
-    return LocalizationMap.from_numpy(dict(
-        X=rng.uniform(-3, 3, (P, 3)).astype(np.float32), lm_desc=lm_desc,
-        lm_alive=np.ones(P, bool), kf_gdesc=kf_g, kf_alive=np.ones(C, bool),
-        kf_centers=rng.uniform(-2, 2, (C, 3)).astype(np.float32),
-        kf_lm=rng.integers(0, P, size=(C, Kc)).astype(np.int32),
-        kf_lm_mask=np.ones((C, Kc), bool)), device)
 
 
 def sharded_case(n: int):

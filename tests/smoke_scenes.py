@@ -14,7 +14,6 @@
 - distractor rooms (``combine_scenes``): scenes of rooms rendered with other
   textures, translated elsewhere in the world frame, joined into one map
   like the rooms of one building;
-- the synthetic map and query of ``bench.py``'s gather-path tripwire;
 - the reference's stalling two-cluster scene at a build's size
   (``two_cluster_world``), for secondary components;
 - the rotated blob-texture pair of tests/test_features.py
@@ -146,31 +145,6 @@ def combine_scenes(parts):
         n_pt += len(scene["X"])
     cols = {k: np.concatenate(v).astype(v[0].dtype) for k, v in out.items()}
     return cols, np.concatenate(feats)
-
-
-def tripwire_case(seed: int = 42, P: int = 8192, C: int = 64, Kc: int = 128,
-                  D: int = 128, K: int = 512):
-    """bench.py's tripwire: a random map of P landmarks in front of an
-    identity camera and K exact projections of landmarks of 4 keyframes.
-    A correct gather path recovers R = I, t = 0 with >= K/2 inliers.
-    Returns (map columns, q_desc (K,D), q_uv (K,2), intr (7,))."""
-    Wt, Ht, f = 640, 480, 560.0
-    rng = np.random.default_rng(seed)
-    X = rng.uniform(-3.0, 3.0, (P, 3)).astype(np.float32)
-    X[:, 2] = rng.uniform(3.0, 8.0, P)
-    lm_desc = rng.standard_normal((P, D)).astype(np.float32)
-    lm_desc /= np.linalg.norm(lm_desc, axis=1, keepdims=True)
-    kf_lm = rng.permutation(P)[: C * Kc].reshape(C, Kc).astype(np.int32)
-    kf_g = lm_desc[kf_lm].mean(1)
-    kf_g /= np.maximum(np.linalg.norm(kf_g, axis=1, keepdims=True), 1e-8)
-    cols = dict(X=X, lm_desc=lm_desc, lm_alive=np.ones(P, bool), kf_gdesc=kf_g,
-                kf_alive=np.ones(C, bool), kf_centers=np.zeros((C, 3), np.float32),
-                kf_lm=kf_lm, kf_lm_mask=np.ones((C, Kc), bool))
-    sel = kf_lm[:4].reshape(-1)[:K]
-    q_uv = np.stack([f * X[sel, 0] / X[sel, 2] + Wt / 2,
-                     f * X[sel, 1] / X[sel, 2] + Ht / 2], 1).astype(np.float32)
-    intr = np.array([f, f, Wt / 2, Ht / 2, 0, 0, 0], np.float32)
-    return cols, lm_desc[sel], q_uv, intr
 
 
 def pair_near_ties(descs, masks, pairs, ratio: float, tol: float = 1e-5):

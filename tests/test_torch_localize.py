@@ -20,6 +20,7 @@ from sfmx.mapstore import lmap_store as jstore
 from sfmx.mapstore.scene import new_scene
 from sfmx.solvers import pnp as jpnp
 from sfmx.solvers import ransac as jransac
+from sfmx_torch.bench import tripwire_case
 from sfmx_torch.cli import config as tcfg
 from sfmx_torch.cli.main import localize_images
 from sfmx_torch.localize import retrieve as tret
@@ -30,7 +31,6 @@ from sfmx_torch.localize.localize import (localize_batch, localize_batch_streami
 from sfmx_torch.mapstore import lmap_store as tstore
 from sfmx_torch.solvers import pnp as tpnp
 from sfmx_torch.solvers import ransac as transac
-from tests.smoke_scenes import tripwire_case
 
 torch.set_num_threads(2)
 INTR = np.array([560.0, 560.0, 320.0, 240.0, 0, 0, 0], np.float32)
