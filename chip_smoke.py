@@ -4,9 +4,10 @@ front-end and reconstruction paths (secondary components, the checkpointed
 final BA, the merge of two sessions and self-calibration included), the
 command line end to end, streaming, oriented and SIFT extraction, and the
 multi-device paths (routed map shards, map-sharded localization, the
-point-sharded BA and the dry run, on one card) and the port of bench.py
-(``sfmx_torch.bench``), once on one CUDA card; or (``--cards 4``) the
-multi-device paths on four cards.
+point-sharded BA and the dry run, on one card), the port of bench.py
+(``sfmx_torch.bench``) and the evaluation configs (``sfmx_torch.run_configs``,
+the port of bench/run_configs.py), once on one CUDA card; or (``--cards 4``)
+the multi-device paths on four cards.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
                                python3 chip_smoke.py --cards 4 [--share-card]
@@ -182,11 +183,11 @@ Phases (each asserts; any failure exits non-zero):
                   solve
  25. cli        — the CLI at full width (``PipelineConfig()`` defaults, VGA),
                   every command through ``sfmx_torch.cli.main.main([...])``
-                  with ``--device cuda``; the 96 frames written as raw 8-bit
-                  files that the ingest seam decodes (the card's machine has
-                  no PIL): build-map (96/96, < 1 px, ATE < 0.1 m, stage
-                  walls), localize of 16 held-out frames (median < 0.2 m,
-                  >= 12 localized), evaluate against the true centers (ATE
+                  with ``--device cuda``; the 96 frames written as 8-bit
+                  PNGs that the command line decodes (PIL): build-map
+                  (96/96, < 1 px, ATE < 0.1 m, stage walls), localize of
+                  16 held-out frames (median < 0.2 m, >= 12 localized),
+                  evaluate against the true centers (ATE
                   < 0.1 m), export (vertices = alive points + 5 per camera),
                   georeference on 4 control cameras (control_rmse < 0.1),
                   merge of two build-map stores (frames 0-59, 36-95: ATE
@@ -244,8 +245,23 @@ Phases (each asserts; any failure exits non-zero):
                   matching bench's 512 random pairs (K = 512) against their
                   plain versions on those inputs (phases 9 and 14's
                   tolerances)
+ 42. configs    — ``sfmx_torch.run_configs`` in this process, each config's
+                  JSON line logged with the card: 1 (the demo), 2 (32 room
+                  frames built, each localized), 3 (global BA at 512 /
+                  20,000 / 200,000 on the planes path), 4 (the 2,048-camera
+                  corridor's block BA on one spawned NCCL rank), 5 (three
+                  synthetic sessions merged), 2+ at 128 room frames (the
+                  streaming CLI build of PNG files), 5-serve at 48 frames
+                  a session (4 shards on cuda:0, the queries POSTed as PNGs
+                  to the HTTP app) and 4-build at
+                  256 corridor frames (one NCCL rank).  Gates: every
+                  ``pass`` the reference computes (1, 2+, 5-serve, 4-build),
+                  ATE < 0.1 m (2, 5), finite costs (3, 4); each config's
+                  launches counted from 0: K1-K3 and K5 in the builds, the
+                  segment sum in 3, 4, 5, 5-serve and 4-build's rank, K6-K8
+                  exactly where a reconstruction took the dense BA path
 
-With ``--cards 4`` only the device check, the build and phases 34-40 run
+With ``--cards 4`` only the device check, the build and phases 34-40 and 43 run
 (the map-scale map, the serving frames and 64 frames of the walk are made
 as above first).  It needs four visible cards of one name and power limit
 (fewer raise, with the count), spawns worlds of 4, 2 and 1 ranks, each
@@ -300,6 +316,12 @@ cuda:0 (routed shards on cuda:0).
                   ``python -m sfmx_torch.dist.dryrun --world-size 4
                   --device cpu``: BA costs and the map-sharded t within
                   1e-4
+ 43. real scene — config 4-build across cards: 256 corridor frames built
+                  through ``run_configs.config2_scale`` on cuda:0, then
+                  ``run_configs.block_ba_real_scene`` on that scene at world
+                  sizes 4 and 1, a card a rank: every rank's R, t, X and
+                  costs bit-identical, the cost monotone, world 4's final
+                  cost within 5 % of world 1's, the segment sum on every rank
 That mode's last two lines are a ``multicard`` JSON (each phase's numbers,
 each rank's launches by world and phase, the serving run's) and the
 device JSON; the cards' nvidia-smi lines come before them.
@@ -2704,43 +2726,6 @@ def CLI_GEOMETRY() -> list[str]:
     return ["-D", f"resize_to={W_IMG},{H_IMG}", "-D", f"focal_factor={FOCAL / W_IMG}"]
 
 
-def write_raw_frames(d: Path, frames, first: int = 0) -> list[Path]:
-    """Frames as raw 8-bit gray files f<i>.png (a 4-byte (h, w) uint16
-    header, then the pixels), the quantization a PNG round trip applies;
-    ``raw_load_gray`` decodes them where the card's machine has no PIL."""
-    d.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for i, f in enumerate(frames):
-        p = d / f"f{first + i:03d}.png"
-        u8 = (np.clip(f, 0.0, 1.0) * 255).astype(np.uint8)
-        p.write_bytes(np.asarray(u8.shape, np.uint16).tobytes() + u8.tobytes())
-        paths.append(p)
-    return paths
-
-
-def raw_load_gray(path, size):
-    """``ingest._load_gray``'s contract for the raw files: (H,W) float32 in
-    [0,1] (the PNG decode's / 255) and the original (w, h); no resize."""
-    raw = Path(path).read_bytes()
-    h, w = (int(v) for v in np.frombuffer(raw[:4], np.uint16))
-    assert size is None or tuple(size) == (w, h), f"the seam does not resize: {size}"
-    return np.frombuffer(raw[4:], np.uint8).reshape(h, w).astype(np.float32) / 255.0, (w, h)
-
-
-@contextlib.contextmanager
-def ingest_seam():
-    """Bind ``sfmx_torch.cli.ingest._load_gray`` to the raw-file decoder
-    while the block runs (the package keeps its one PIL code path)."""
-    from sfmx_torch.cli import ingest
-
-    orig = ingest._load_gray
-    ingest._load_gray = raw_load_gray
-    try:
-        yield
-    finally:
-        ingest._load_gray = orig
-
-
 def run_cli(argv: list[str]):
     """``sfmx_torch.cli.main.main(argv)`` with its standard output and stage
     log captured: (the output, stage records by name, host wall s, the card
@@ -2803,15 +2788,16 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
     from examples import room
     from sfmx_torch.kernels import _build
     from sfmx_torch.mapstore.scene import load_manifest
+    from sfmx_torch.run_configs import write_png_frames
     from sfmx_torch.solvers import umeyama
 
     if CLI_ROOT.exists():
         shutil.rmtree(CLI_ROOT)
     walk = CLI_ROOT / "walk"
-    paths = write_raw_frames(walk, frames)
+    paths = write_png_frames(walk, frames)
     mids = room.walk_poses(N_BAND - 1)[1::2]
     qposes = [mids[i] for i in np.round(np.linspace(0, N_BUILD - 2, N_LOOP_QUERIES)).astype(int)]
-    write_raw_frames(CLI_ROOT / "queries", render(tex, qposes))
+    write_png_frames(CLI_ROOT / "queries", render(tex, qposes))
     eyes = np.stack([eye for _R, _t, eye in poses])
     dv = ["--device", str(dev)]
     focal = CLI_GEOMETRY()
@@ -2819,31 +2805,30 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
     cmds = {}
     torch.cuda.synchronize()
     _build.LAUNCHES.reset()
-    with ingest_seam():
-        out, stages, wall = run_cli(["build-map", str(walk), "-o", store, *focal, *dv])
-        rec = json.loads(out.strip().splitlines()[-1])
-        cmds["build-map"] = wall
-        st = load_manifest(store)["extra"]["stats"]
-        ate, sim = store_ate(store, eyes, dev)
-        log(f"[cli] build-map of {len(paths)} frames in {wall:.3f} s: {json.dumps(rec)}; "
-            f"stage walls {stage_walls(stages)}; median reprojection {st['final_med_px']:.4f} px, "
-            f"ATE {ate:.4f} m (phase 18 on the float frames: {ate18:.4f}); seed pairs "
-            f"{st.get('init_pairs')}; on {smi}")
-        assert rec["registered"] == len(paths), f"cli build-map: {rec}"
-        assert st["final_med_px"] < REPROJ_GATE_PX, f"cli build-map: {st['final_med_px']} px"
-        assert np.isfinite(ate) and ate < ATE_GATE_M, f"cli build-map: ATE {ate}"
+    out, stages, wall = run_cli(["build-map", str(walk), "-o", store, *focal, *dv])
+    rec = json.loads(out.strip().splitlines()[-1])
+    cmds["build-map"] = wall
+    st = load_manifest(store)["extra"]["stats"]
+    ate, sim = store_ate(store, eyes, dev)
+    log(f"[cli] build-map of {len(paths)} frames in {wall:.3f} s: {json.dumps(rec)}; "
+        f"stage walls {stage_walls(stages)}; median reprojection {st['final_med_px']:.4f} px, "
+        f"ATE {ate:.4f} m (phase 18 on the float frames: {ate18:.4f}); seed pairs "
+        f"{st.get('init_pairs')}; on {smi}")
+    assert rec["registered"] == len(paths), f"cli build-map: {rec}"
+    assert st["final_med_px"] < REPROJ_GATE_PX, f"cli build-map: {st['final_med_px']} px"
+    assert np.isfinite(ate) and ate < ATE_GATE_M, f"cli build-map: ATE {ate}"
 
-        out, _, wall = run_cli(["localize", store, str(CLI_ROOT / "queries"), *focal, *dv])
-        cmds["localize"] = wall
-        res = json.loads(out)
-        centers = torch.as_tensor([r["center"] for r in res], dtype=torch.float32, device=dev)
-        world = umeyama.apply_sim3(*sim, centers).cpu().numpy()
-        errs = np.linalg.norm(world - np.stack([e for _R, _t, e in qposes]), axis=1)
-        n_loc = sum(r["confidence"] > 0 for r in res)
-        log(f"[cli] localize of {len(res)} held-out frames in {wall:.3f} s: center errors "
-            f"median {np.median(errs):.4f} m (gate < {MEDIAN_GATE_M}), max {errs.max():.4f}; "
-            f"{n_loc}/{len(res)} localized (gate >= {N_LOOP_MIN})")
-        assert np.median(errs) < MEDIAN_GATE_M and n_loc >= N_LOOP_MIN, (errs, n_loc)
+    out, _, wall = run_cli(["localize", store, str(CLI_ROOT / "queries"), *focal, *dv])
+    cmds["localize"] = wall
+    res = json.loads(out)
+    centers = torch.as_tensor([r["center"] for r in res], dtype=torch.float32, device=dev)
+    world = umeyama.apply_sim3(*sim, centers).cpu().numpy()
+    errs = np.linalg.norm(world - np.stack([e for _R, _t, e in qposes]), axis=1)
+    n_loc = sum(r["confidence"] > 0 for r in res)
+    log(f"[cli] localize of {len(res)} held-out frames in {wall:.3f} s: center errors "
+        f"median {np.median(errs):.4f} m (gate < {MEDIAN_GATE_M}), max {errs.max():.4f}; "
+        f"{n_loc}/{len(res)} localized (gate >= {N_LOOP_MIN})")
+    assert np.median(errs) < MEDIAN_GATE_M and n_loc >= N_LOOP_MIN, (errs, n_loc)
 
     ref_txt = CLI_ROOT / "centers.txt"
     np.savetxt(ref_txt, eyes)
@@ -2869,17 +2854,16 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
     assert geo["control_rmse"] < 0.1, geo
 
     sessions, s_eyes = [], []
-    with ingest_seam():
-        for i, (lo, hi) in enumerate(MERGE_SESSIONS):
-            d = CLI_ROOT / f"session{i}"
-            d.mkdir()
-            for p in paths[lo:hi]:
-                os.link(p, d / p.name)
-            sessions.append(str(CLI_ROOT / f"session{i}_map"))
-            out, _, cmds[f"build-map session {i}"] = run_cli(
-                ["build-map", str(d), "-o", sessions[-1], *focal, *dv])
-            assert json.loads(out.strip().splitlines()[-1])["registered"] == hi - lo, out
-            s_eyes.append(eyes[lo:hi])
+    for i, (lo, hi) in enumerate(MERGE_SESSIONS):
+        d = CLI_ROOT / f"session{i}"
+        d.mkdir()
+        for p in paths[lo:hi]:
+            os.link(p, d / p.name)
+        sessions.append(str(CLI_ROOT / f"session{i}_map"))
+        out, _, cmds[f"build-map session {i}"] = run_cli(
+            ["build-map", str(d), "-o", sessions[-1], *focal, *dv])
+        assert json.loads(out.strip().splitlines()[-1])["registered"] == hi - lo, out
+        s_eyes.append(eyes[lo:hi])
     merged = str(CLI_ROOT / "merged")
     out, _, cmds["merge"] = run_cli(["merge", *sessions, "-o", merged, *dv])
     mrec = json.loads(out)
@@ -2914,7 +2898,7 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
 
 
 def phase_streaming(frames, dev, smi: str) -> dict:
-    """Phase 26.  ``extract_features_streaming`` of the 96 raw frames in
+    """Phase 26.  ``extract_features_streaming`` of the 96 PNG frames in
     chunks of STREAM_CHUNK on the card against eager ``extract_features`` of
     the same decoded frames (bit for bit, else within K1's 1e-4 and why);
     the streaming wall beside the eager one (decode everything, then
@@ -2931,38 +2915,37 @@ def phase_streaming(frames, dev, smi: str) -> dict:
 
     cfg = PipelineConfig()
     paths = ingest.list_images(CLI_ROOT / "walk")
-    with ingest_seam():
-        torch.cuda.synchronize()
-        _build.LAUNCHES.reset()
-        (feats, sizes), _ = synced(lambda: extract_features_streaming(
-            paths, cfg, dev, chunk=STREAM_CHUNK, resize_to=(W_IMG, H_IMG)))
-        launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
-        ws = ingest.load_directory(CLI_ROOT / "walk", resize_to=(W_IMG, H_IMG))
-        eager = extract_features(ws.images, cfg, dev)
-        fields = ("uv", "level", "sigma", "angle", "response", "mask", "desc", "desc_bits")
-        got = dict(zip(fields, (*feats.kp, feats.desc, feats.desc_bits)))
-        ref = dict(zip(fields, (*eager.kp, eager.desc, eager.desc_bits)))
-        diff = {k: float((got[k].double() - ref[k].double()).abs().max()) for k in fields}
-        bit_equal = all(torch.equal(got[k], ref[k]) for k in fields)
-        m = ref["mask"]
-        mask_share = float((got["mask"] == m).double().mean())
-        desc_err = float((got["desc"][m] - ref["desc"][m]).abs().max())
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    (feats, sizes), _ = synced(lambda: extract_features_streaming(
+        paths, cfg, dev, chunk=STREAM_CHUNK, resize_to=(W_IMG, H_IMG)))
+    launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    ws = ingest.load_directory(CLI_ROOT / "walk", resize_to=(W_IMG, H_IMG))
+    eager = extract_features(ws.images, cfg, dev)
+    fields = ("uv", "level", "sigma", "angle", "response", "mask", "desc", "desc_bits")
+    got = dict(zip(fields, (*feats.kp, feats.desc, feats.desc_bits)))
+    ref = dict(zip(fields, (*eager.kp, eager.desc, eager.desc_bits)))
+    diff = {k: float((got[k].double() - ref[k].double()).abs().max()) for k in fields}
+    bit_equal = all(torch.equal(got[k], ref[k]) for k in fields)
+    m = ref["mask"]
+    mask_share = float((got["mask"] == m).double().mean())
+    desc_err = float((got["desc"][m] - ref["desc"][m]).abs().max())
 
-        def eager_run():
-            return extract_features(ingest.load_directory(
-                CLI_ROOT / "walk", resize_to=(W_IMG, H_IMG)).images, cfg, dev)
+    def eager_run():
+        return extract_features(ingest.load_directory(
+            CLI_ROOT / "walk", resize_to=(W_IMG, H_IMG)).images, cfg, dev)
 
-        def stream_run():
-            return extract_features_streaming(paths, cfg, dev, chunk=STREAM_CHUNK,
-                                              resize_to=(W_IMG, H_IMG))
+    def stream_run():
+        return extract_features_streaming(paths, cfg, dev, chunk=STREAM_CHUNK,
+                                          resize_to=(W_IMG, H_IMG))
 
-        walls = {"eager": [], "streaming": []}
-        for _ in range(3):
-            walls["eager"].append(synced(eager_run)[1])
-            walls["streaming"].append(synced(stream_run)[1])
-        _ms, by, _t = device_ms_per_run(stream_run, reps=1)
-        # the stage log's record_function range has a device-side span too
-        dev_ms = sum(t for k, t in by.items() if k != "extract_stream")
+    walls = {"eager": [], "streaming": []}
+    for _ in range(3):
+        walls["eager"].append(synced(eager_run)[1])
+        walls["streaming"].append(synced(stream_run)[1])
+    _ms, by, _t = device_ms_per_run(stream_run, reps=1)
+    # the stage log's record_function range has a device-side span too
+    dev_ms = sum(t for k, t in by.items() if k != "extract_stream")
     s_wall = float(np.median(walls["streaming"]))
     log(f"[stream] {len(paths)} frames in chunks of {STREAM_CHUNK}: bit-equal to eager "
         f"extraction {bit_equal}; largest field differences {json.dumps(diff)}; masks equal in "
@@ -2978,12 +2961,11 @@ def phase_streaming(frames, dev, smi: str) -> dict:
     n_chunks = -(-len(paths) // STREAM_CHUNK)
     check_launches("streaming extraction", launches, {k: v * n_chunks for k, v in ext.items()})
 
-    with ingest_seam():
-        _build.LAUNCHES.reset()
-        out, stages, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o",
-                                     str(CLI_ROOT / "map_stream"), "--stream", "--chunk",
-                                     str(STREAM_CHUNK), *CLI_GEOMETRY(), "--device", str(dev)])
-        b_launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    _build.LAUNCHES.reset()
+    out, stages, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o",
+                                 str(CLI_ROOT / "map_stream"), "--stream", "--chunk",
+                                 str(STREAM_CHUNK), *CLI_GEOMETRY(), "--device", str(dev)])
+    b_launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
     rec = json.loads(out.strip().splitlines()[-1])
     log(f"[stream] build-map --stream in {wall:.3f} s: {json.dumps(rec)}; stage walls "
         f"{stage_walls(stages)}; launches {json.dumps(b_launches)}")
@@ -3204,12 +3186,11 @@ def phase_determinism(cli: dict, dev, smi: str) -> dict:
     from sfmx_torch.mapstore.scene import SCENE_FIELDS, load_manifest, load_scene_np
 
     store2 = str(CLI_ROOT / "map_again")
-    with ingest_seam():
-        torch.cuda.synchronize()
-        _build.LAUNCHES.reset()
-        out, _, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o", store2,
-                                *CLI_GEOMETRY(), "--device", str(dev)])
-        launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.reset()
+    out, _, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o", store2,
+                            *CLI_GEOMETRY(), "--device", str(dev)])
+    launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
     st1 = cli["stats"]
     st2 = load_manifest(store2)["extra"]["stats"]
     s1 = {k: v for k, v in st1.items() if k not in CLI_TIMING_KEYS}
@@ -3257,9 +3238,10 @@ def phase_determinism(cli: dict, dev, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARD_SPLITS = (2, 4)          # phase 31: landmark shards of the map-scale map on cuda:0
-# phase 32: bench/run_configs.py:config4's corridor problem and solver settings
-CONFIG4 = dict(C=2048, P=200_000, obs_per_cam=800_000 // 2048, iters=8, cg_iters=25,
-               ckpt_every=4, k_iters=2)
+# phases 32 and 38: config 4 (``sfmx_torch.run_configs``: its corridor problem,
+# 8 LM iterations x 25 CG steps) and, beside it, the joint-intrinsics solve's
+# iterations and the checkpointed solve's chunk
+BLOCK_K_ITERS, BLOCK_CKPT_EVERY = 2, 4
 BLOCK_RTOL = 0.05              # blocked vs single-device final cost (tests/test_torch_block_ba.py)
 
 
@@ -3347,27 +3329,6 @@ def phase_sharded(lmap, frames, dev, smi: str) -> tuple[dict, dict]:
     return launches, ms
 
 
-def block_problem(rng):
-    """bench/run_configs.py:config4's corridor problem: camera c sees a
-    window of 300 points; 0.5 px noise."""
-    C, P = CONFIG4["C"], CONFIG4["P"]
-    O = CONFIG4["obs_per_cam"] * C
-    cam_id = np.repeat(np.arange(C, dtype=np.int32), O // C)
-    lo = (cam_id.astype(np.int64) * (P - 300) // C).astype(np.int32)
-    pt_id = (lo + rng.integers(0, 300, O)).astype(np.int32)
-    X = rng.uniform(-10, 10, (P, 3)).astype(np.float32)
-    t = np.concatenate([rng.uniform(-5, 5, (C, 2)), np.full((C, 1), 20.0)], 1).astype(np.float32)
-    R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
-    Xc = X[pt_id] + t[cam_id]
-    uv = ((Xc[:, :2] / Xc[:, 2:3]) * 500.0 + np.asarray([320.0, 240.0])
-          + 0.5 * rng.standard_normal((O, 2))).astype(np.float32)
-    fixed = np.zeros(C, bool)
-    fixed[0] = True
-    intr = np.asarray([[500.0, 500.0, 320.0, 240.0, 0, 0, 0]], np.float32)
-    return (intr, np.zeros(C, np.int32), R, t, X, cam_id, pt_id, uv, np.ones(O, np.float32),
-            fixed)
-
-
 def phase_block_ba(dev, smi: str) -> None:
     """Phase 32.  Config 4's problem (2,048 cameras, 200,000 points, 798,720
     observations; 8 LM iterations x 25 CG steps) through ``ba_solve_blocked``
@@ -3382,10 +3343,14 @@ def phase_block_ba(dev, smi: str) -> None:
     import torch.distributed as dist
 
     from sfmx_torch.dist import block_ba, mesh
+    from sfmx_torch.dist.worlds import digest
+    from sfmx_torch.run_configs import CONFIG4, config4_problem
     from sfmx_torch.solvers import lm
 
-    prob = block_problem(np.random.default_rng(1))
+    prob = config4_problem(np.random.default_rng(1))
     C, P, O = prob[2].shape[0], prob[4].shape[0], prob[5].shape[0]
+    log(f"[block BA] config 4's problem (sfmx_torch.run_configs.config4_problem): digest "
+        f"{digest(*prob)}")
     it, cg = CONFIG4["iters"], CONFIG4["cg_iters"]
     (ROOT / ".chip_scratch").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ROOT / ".chip_scratch")
@@ -3415,27 +3380,27 @@ def phase_block_ba(dev, smi: str) -> None:
         assert rel <= BLOCK_RTOL, f"blocked and planes costs differ by {rel}"
 
         (_, _, _, intr_k, costs_k, _), wall_k = timed(lambda: block_ba.ba_solve_blocked_intrinsics(
-            *prob, device=dev, params=("f",), iters=CONFIG4["k_iters"], cg_iters=cg))
-        log(f"[block BA] joint intrinsics (f), {CONFIG4['k_iters']} LM iterations in "
+            *prob, device=dev, params=("f",), iters=BLOCK_K_ITERS, cg_iters=cg))
+        log(f"[block BA] joint intrinsics (f), {BLOCK_K_ITERS} LM iterations in "
             f"{wall_k:.3f} s: cost {float(costs_k[0]):.4f} -> {float(costs_k[-1]):.6f}, focal "
             f"{float(intr_k[0, 0]):.3f} (truth 500)")
         assert np.isfinite(costs_k).all() and costs_k[-1] <= costs_k[0], costs_k
         assert abs(float(intr_k[0, 0]) - 500.0) < 5.0, float(intr_k[0, 0])
 
-        ck = dict(device=dev, cg_iters=cg, ckpt_every=CONFIG4["ckpt_every"])
+        ck = dict(device=dev, cg_iters=cg, ckpt_every=BLOCK_CKPT_EVERY)
         (Ra, ta, Xa, ca, _), wall_a = timed(lambda: block_ba.ba_solve_blocked(
             *prob, iters=it, ckpt_path=f"{tmp}/a.ckpt.npz", **ck))
-        block_ba.ba_solve_blocked(*prob, iters=CONFIG4["ckpt_every"],
+        block_ba.ba_solve_blocked(*prob, iters=BLOCK_CKPT_EVERY,
                                   ckpt_path=f"{tmp}/b.ckpt.npz", **ck)
         Rb, tb, Xb, cb, _ = block_ba.ba_solve_blocked(*prob, iters=it,
                                                       ckpt_path=f"{tmp}/b.ckpt.npz", **ck)
         same = all(torch.equal(x, y) for x, y in ((Ra, Rb), (ta, tb), (Xa, Xb))) \
             and ca[-1] == cb[-1]
-        log(f"[block BA] checkpointed every {CONFIG4['ckpt_every']} ({wall_a:.3f} s, costs "
+        log(f"[block BA] checkpointed every {BLOCK_CKPT_EVERY} ({wall_a:.3f} s, costs "
             f"{len(ca)}); stopped after its first chunk and resumed ({len(cb)} costs): "
             f"bit-identical to the uninterrupted run {same}; uninterrupted unchunked final cost "
             f"{float(costs_b[-1]):.6f}, chunked {float(ca[-1]):.6f}")
-        assert same and len(ca) == it + 1 and len(cb) == it - CONFIG4["ckpt_every"] + 1
+        assert same and len(ca) == it + 1 and len(cb) == it - BLOCK_CKPT_EVERY + 1
     finally:
         dist.destroy_process_group()
 
@@ -3520,6 +3485,137 @@ def phase_bench(dev, smi: str) -> dict:
     return total
 
 
+# phase 42: the evaluation configs (sfmx_torch.run_configs) in this process.
+# Frame counts are the README's cut to fit the run (widths never): 2+ at 128
+# room frames (README: 512), 5-serve at 48 frames a session (128), 4-build at
+# 256 corridor frames on one rank (1,024 on four cards)
+CONFIGS_SCALE_FRAMES, CONFIGS_SERVE_FPS, CONFIGS_BUILD_FRAMES = 128, 48, 256
+BA_KERNELS = ("schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused")
+
+
+def config_run(tag: str, fn, dev, smi: str, *args, **kw):
+    """``fn(*args, **kw)`` with this process's launches counted from 0 and
+    every ``reconstruct`` in it watched; logs its JSON line with ``device``
+    added.  Returns (the line, the launches, every spawned rank's digest
+    and launches, whether a reconstruction here took the dense BA path)."""
+    import torch
+
+    from sfmx_torch.bench import device_info
+    from sfmx_torch.kernels import _build
+    from sfmx_torch.recon import incremental
+
+    dense_calls = []
+    orig = incremental.reconstruct
+
+    def watched(*a, **k):
+        scene, stats = orig(*a, **k)
+        dense_calls.append(stats["ba_calls"]["dense"])
+        return scene, stats
+
+    incremental.reconstruct = watched
+    try:
+        torch.cuda.synchronize()
+        _build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        incremental.reconstruct = orig
+    launches = {k: v for k, v in _build.LAUNCHES.counts.items() if v}
+    line, ranks = out if isinstance(out, tuple) else (out, [])
+    line["device"] = device_info(dev)
+    dense = any(n > 0 for n in dense_calls)
+    log(f"config {json.dumps(line)}")
+    log(f"[configs] {tag}: {wall:.1f} s; launches {json.dumps(launches)}"
+        + (f"; ranks' launches {json.dumps([r['launches'] for r in ranks])}" if ranks else "")
+        + f"; dense BA calls per reconstruction {dense_calls}; on {smi}")
+    return line, launches, ranks, dense
+
+
+def check_config(tag: str, launches: dict, dense: bool, need) -> None:
+    """``need`` launched, and K6-K8 exactly where a build took the dense path."""
+    assert all(launches.get(k, 0) > 0 for k in need), f"{tag}: launches {launches}, needs {need}"
+    ba = [launches.get(k, 0) > 0 for k in BA_KERNELS]
+    assert all(ba) if dense else not any(ba), f"{tag}: dense {dense}, launches {launches}"
+
+
+def phase_configs(dev, smi: str) -> dict:
+    """Phase 42.  The evaluation configs (``sfmx_torch.run_configs``, the port
+    of bench/run_configs.py) on the card, each line logged with the card:
+    1 (the demo's PASS), 2 (32 frames, ATE < 0.1 m), 3 (ba-512's config-3
+    problem on the planes path), 4 (the corridor's block BA, one NCCL rank),
+    5 (three synthetic sessions merged, ATE < 0.1 m), 2+ at
+    CONFIGS_SCALE_FRAMES room frames, 5-serve at CONFIGS_SERVE_FPS frames a
+    session (4 shards on cuda:0, its queries over HTTP) and 4-build at
+    CONFIGS_BUILD_FRAMES corridor frames (one NCCL rank); 2+ and 4-build
+    write PNG frame files in a temporary directory.  Gates:
+    every ``pass`` the reference computes; each config's launches counted
+    from 0: K1-K3 and K5 in the builds, the segment sum in configs 3, 4,
+    5, 5-serve (the merges' planes BA) and 4-build's ranks, K6-K8 exactly
+    where a build took the dense path.  Returns the launches, summed over
+    the configs and their ranks."""
+    import tempfile
+
+    from sfmx_torch import run_configs as rc
+
+    ext = ("diffuse_segment", "response_levels", "describe_upright")
+    t0 = time.perf_counter()
+    total: dict = {}
+
+    line, got, _, dense = config_run("config 1", rc.config1, dev, smi, dev)
+    assert line["pass"], "config 1: the demo failed"
+    check_config("config 1", got, dense, ext + ("match_pairs_fused",))
+    add_launches(total, got)
+
+    line, got, _, dense = config_run("config 2", rc.config2, dev, smi, dev)
+    assert line["ate_m"] < ATE_GATE_M, line
+    check_config("config 2", got, dense, ext + ("match_pairs_fused",))
+    add_launches(total, got)
+
+    line, got, _, _ = config_run("config 3", rc.config3, dev, smi, dev)
+    assert np.isfinite(line["final_cost"]) and line["lm_iters_per_s"] > 0, line
+    check_config("config 3", got, False, ("segment_sum",))
+    add_launches(total, got)
+
+    ranks_on = "cuda" if dev.type == "cuda" else str(dev)     # one NCCL rank on a card
+    line, got, ranks, _ = config_run("config 4", rc.config4, dev, smi, ranks_on, world_size=1)
+    assert np.isfinite(line["final_cost"]) and line["n_blocks"] == 1, line
+    check_config("config 4 rank", ranks[0]["launches"], False, ("segment_sum",))
+    add_launches(total, ranks[0]["launches"])
+
+    line, got, _, dense = config_run("config 5", rc.config5, dev, smi, dev)
+    assert line["ate_m"] < ATE_GATE_M, line
+    check_config("config 5", got, dense, ("match_pairs_fused", "segment_sum"))
+    add_launches(total, got)
+
+    with tempfile.TemporaryDirectory(prefix="sfmx_c2_") as root:
+        line, got, _, dense = config_run(f"config 2+ ({CONFIGS_SCALE_FRAMES} frames)",
+                                         rc.config2_scale, dev, smi, dev, root,
+                                         frames=CONFIGS_SCALE_FRAMES)
+    assert line["pass"], "config 2+ failed its gates"
+    check_config("config 2+", got, dense, ext + ("match_pairs_fused",))
+    add_launches(total, got)
+
+    line, got, _, dense = config_run(f"config 5-serve ({CONFIGS_SERVE_FPS} frames a session)",
+                                     rc.config5_serve, dev, smi, dev, fps=CONFIGS_SERVE_FPS)
+    assert line["pass"], "config 5-serve failed its gates"
+    check_config("config 5-serve", got, dense, ext + ("match_pairs_fused", "segment_sum"))
+    add_launches(total, got)
+
+    with tempfile.TemporaryDirectory(prefix="sfmx_c4b_") as root:
+        line, got, ranks, dense = config_run(
+            f"config 4-build ({CONFIGS_BUILD_FRAMES} corridor frames)", rc.config4_build, dev,
+            smi, ranks_on, root, frames=CONFIGS_BUILD_FRAMES, scene="corridor", world_size=1)
+    assert line["pass"], "config 4-build failed its gates"
+    check_config("config 4-build", got, dense, ext + ("match_pairs_fused",))
+    check_config("config 4-build rank", ranks[0]["launches"], False, ("segment_sum",))
+    add_launches(total, got)
+    add_launches(total, ranks[0]["launches"])
+    log(f"[configs] phase 42 in {time.perf_counter() - t0:.1f} s; launches {json.dumps(total)}")
+    return total
+
+
 def phase_dryrun(dev, smi: str) -> dict:
     """Phase 33.  ``sfmx_torch.dist.dryrun`` (every multi-device path once:
     block BA, joint-intrinsics block BA, the observation-sharded step,
@@ -3597,7 +3693,8 @@ def write_multicard_inputs(big, serve_frames, walk, dev) -> dict:
 
     from sfmx_torch.cli.config import PipelineConfig
     from sfmx_torch.cli.pipeline import extract_features
-    from sfmx_torch.dist.worlds import BA_NAMES
+    from sfmx_torch.dist.worlds import BA_NAMES, digest
+    from sfmx_torch.run_configs import CONFIG4, config4_problem
     from tests import smoke_scenes
 
     shutil.rmtree(MC_DIR, ignore_errors=True)      # no checkpoint of an earlier run
@@ -3615,9 +3712,11 @@ def write_multicard_inputs(big, serve_frames, walk, dev) -> dict:
              noise_seed=NOISE_SEED, px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh,
              min_inliers=lc.min_inliers)
     save("sharded", **{f"map_{k}": v for k, v in big.to_numpy().items()}, **q)
-    prob4 = dict(zip(BA_NAMES, block_problem(np.random.default_rng(1))))
+    prob4 = dict(zip(BA_NAMES, config4_problem(np.random.default_rng(1))))
+    log(f"[inputs] config 4's problem (sfmx_torch.run_configs.config4_problem): digest "
+        f"{digest(*prob4.values())}")
     save("block_ba", **prob4, iters=CONFIG4["iters"], cg_iters=CONFIG4["cg_iters"], twice=True,
-         k_iters=CONFIG4["k_iters"], ckpt_every=CONFIG4["ckpt_every"],
+         k_iters=BLOCK_K_ITERS, ckpt_every=BLOCK_CKPT_EVERY,
          ckpt_dir=str(MC_DIR / "ckpt"))
     p = smoke_scenes.ba_problem(BA_SHAPE["C"], BA_SHAPE["P"], BA_SHAPE["O"], seed=0, window=16,
                                 perturb=0.03)
@@ -3952,6 +4051,7 @@ def phase_block_cards(res, prob: dict, links: dict, dev, smi: str) -> dict:
     import torch
 
     from sfmx_torch.dist.worlds import BA_NAMES
+    from sfmx_torch.run_configs import CONFIG4
     from sfmx_torch.solvers import lm
 
     it, cg = CONFIG4["iters"], CONFIG4["cg_iters"]
@@ -4003,7 +4103,7 @@ def phase_block_cards(res, prob: dict, links: dict, dev, smi: str) -> dict:
         assert rel <= BLOCK_RTOL, f"world of {n}: blocked and planes costs differ by {rel}"
         assert abs(row["focal"] - 500.0) < 5.0, row["focal"]
         assert bool(o["ck_equal"]) and len(o["ck_costs"]) == it + 1 \
-            and len(o["ck_resumed_costs"]) == it - CONFIG4["ckpt_every"] + 1
+            and len(o["ck_resumed_costs"]) == it - BLOCK_CKPT_EVERY + 1
     return out
 
 
@@ -4073,6 +4173,51 @@ def phase_dryrun_cards(res, smi: str) -> dict:
     return {"cost_rel": rel, "t_diff": dt}
 
 
+def phase_real_scene_cards(n: int, share: bool, smi: str) -> tuple[dict, dict]:
+    """Phase 43 (the cards): config 4-build's block BA across cards.  The
+    4-build's scene (CONFIGS_BUILD_FRAMES corridor frames through
+    ``run_configs.config2_scale`` on cuda:0, PNG frame files), then
+    ``run_configs.block_ba_real_scene`` on it at world sizes ``n`` and 1, a
+    card a rank under NCCL (``share``: gloo ranks on cuda:0).  Gates: the
+    build's own; every rank's R, t, X and costs bit-identical;
+    ``cost_monotone_ok``; world ``n``'s final cost within BLOCK_RTOL of
+    world 1's; the segment sum on every rank.  Returns (the phase's
+    numbers, each world's ranks' launches)."""
+    import tempfile
+
+    from sfmx_torch import run_configs as rc
+
+    with tempfile.TemporaryDirectory(prefix="sfmx_c4b_") as root:
+        t0 = time.perf_counter()
+        rep = rc.config2_scale("cuda:0", root, frames=CONFIGS_BUILD_FRAMES, scene="corridor")
+        log(f"[real-scene-cards] the 4-build's scene: {CONFIGS_BUILD_FRAMES} corridor frames, "
+            f"{rep['n_registered']} registered, ATE {rep['ate_m']:.4f} m (gate "
+            f"{rep['ate_gate_m']:.3f}), {time.perf_counter() - t0:.1f} s; on {smi}")
+        assert rep["pass"], "the 4-build's scene failed its gates"
+        device, backend = ("cuda:0", "gloo") if share else ("cuda", None)
+        out, launches = {}, {}
+        for w in (n, 1):
+            t0 = time.perf_counter()
+            bb, ranks = rc.block_ba_real_scene(rep["map_path"], device, world_size=w,
+                                               backend=backend)
+            launches[str(w)] = check_launched(f"real scene, world of {w}",
+                                              [r["launches"] for r in ranks], ("segment_sum",))
+            log(f"block_ba_real_scene {json.dumps(bb)}")
+            log(f"[real-scene-cards] world of {w} ({backend or 'nccl'} on {device}): "
+                f"{time.perf_counter() - t0:.1f} s (processes included); rank digests "
+                f"{[r['digest'][:12] for r in ranks]}; launches rank 0 "
+                f"{json.dumps(ranks[0]['launches'])}")
+            assert len({r["digest"] for r in ranks}) == 1, f"world of {w}: ranks differ"
+            assert bb["cost_monotone_ok"] and bb["n_blocks"] == w, bb
+            out[str(w)] = bb
+        rel = abs(out[str(n)]["cost_final"] - out["1"]["cost_final"]) / out["1"]["cost_final"]
+        log(f"[real-scene-cards] final cost world {n} {out[str(n)]['cost_final']:.6f}, world 1 "
+            f"{out['1']['cost_final']:.6f}: relative difference {rel:.2e} (gate {BLOCK_RTOL})")
+        assert rel <= BLOCK_RTOL, f"world {n} and world 1 costs differ by {rel}"
+        return {"scene": {k: rep[k] for k in ("n_frames", "n_registered", "ate_m", "wall_s")},
+                "worlds": out, "rel_cost": rel}, launches
+
+
 def main_cards(n: int, share: bool) -> int:
     """``--cards n``: phases 34-40 after the device check and the build."""
     import torch
@@ -4111,11 +4256,13 @@ def main_cards(n: int, share: bool) -> int:
     phases["38"] = phase_block_cards(res, inputs["block"], links, dev, smi)
     phases["39"] = phase_obs_cards(res, inputs["ba512"], links, dev, smi)
     phases["40"] = phase_dryrun_cards(res[n]["dryrun"], smi)
+    phases["43"], real_scene_launches = phase_real_scene_cards(n, share, smi)
     launches = {f"world{w}": {p: ([json.loads(str(o["json"]))["launches"] for o in outs]
                                   if p == "dryrun" else rank_launches(outs))
                               for p, outs in by_phase.items() if p != "collectives"}
                 for w, by_phase in res.items()}
     launches["serve"] = serve_launches
+    launches["real_scene"] = real_scene_launches
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
     for line in cards["cards"]:
         print(line)
@@ -4441,13 +4588,16 @@ def main() -> int:
     rest_paths["dryrun"] = phase_dryrun(dev, smi)
     # bench.py's functions on the port (phase 41): each counted from 0
     rest_paths["bench"] = phase_bench(dev, smi)
+    # the evaluation configs (phase 42): each counted from 0
+    rest_paths["configs"] = phase_configs(dev, smi)
     kstats["match_top2"]["shard_ms"] = {str(n): v for n, v in k4_shard_ms.items()}
     ext = ("diffuse_segment", "response_levels", "describe_upright")
     ba = ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused")
     rest_need = {"cli": ext + ba, "streaming": ext + ba, "oriented": ext[:2], "sift": ba,
                  "determinism": ext + ba, "serve shards": ext, "sharded": ("match_top2",),
                  "dryrun": ext + ("match_top2", "match_pairs_fused"),
-                 "bench": ext + ("match_top2",) + ba}
+                 "bench": ext + ("match_top2",) + ba,
+                 "configs": ext + ("match_pairs_fused", "segment_sum")}
     for tag, got in rest_paths.items():
         log(f"[counters] {tag} launches {json.dumps(got)}")
         assert all(got.get(k, 0) > 0 for k in rest_need[tag]), f"{tag}: launches {got}"

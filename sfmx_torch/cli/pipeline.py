@@ -308,7 +308,9 @@ def build_front_end(images, intrinsics, cam_k, cfg: PipelineConfig, device, work
 
     ``images`` (N,H,W) in [0,1], or None with precomputed ``feats`` (then
     ``stage_seed`` keys the cache).  ``generator`` draws the RANSAC noise
-    on ``device``.  Returns
+    on the features' device; None makes one there seeded from
+    ``cfg.recon.seed``, so a build repeats bit for bit as the reference's
+    (its verification keys are fixed seeds).  Returns
     (feats, pairs (Np,2), verified MatchResult, inlier counts or None,
     TrackTable); every stage writes one LOGGER record.
     """
@@ -326,6 +328,8 @@ def build_front_end(images, intrinsics, cam_k, cfg: PipelineConfig, device, work
 
         feats = cache.get_or_run("extract", _stage_key("extract", images, cfg.features),
                                  _extract)
+    if generator is None:
+        generator = torch.Generator(device=feats.desc.device).manual_seed(cfg.recon.seed)
     key_basis = images if images is not None else stage_seed
     with LOGGER.scope("pairs", mode=cfg.match.pair_mode) as out:
         if cfg.match.pair_mode == "retrieval":
@@ -362,8 +366,9 @@ def build_map(images, intrinsics, cam_k, cfg: PipelineConfig, device, workdir=No
               generator: torch.Generator | None = None):
     """Full map build on ``device``; returns (scene, feats, track_table, stats).
 
-    The front end is ``build_front_end`` (same arguments); the
-    ``reconstruct`` stage then runs incremental SfM and bundle adjustment
+    The front end is ``build_front_end`` (same arguments; without a
+    ``generator`` verification draws from one seeded ``cfg.recon.seed``);
+    the ``reconstruct`` stage then runs incremental SfM and bundle adjustment
     over its tracks, seeded from ``cfg.recon.seed``.  Direct
     (geometry-verified) per-pair match counts drive the initial-pair
     selection: chained covisibility drifts.

@@ -3,7 +3,7 @@
 
 Renders a textured room from a walkthrough camera arc (``examples/room.py``),
 then runs the public pipeline on ``--device``:
-  detect_and_describe -> match_pairs_float -> verify_matches -> build_tracks
+  detect_and_describe -> match_pairs_float_auto (K5) -> verify_matches -> build_tracks
   -> reconstruct -> save/load the scene store -> evaluate_trajectory ->
   localize_query of held-out renders.
 Prints ``DEMO: PASS`` when every camera but at most one registered, the
@@ -64,7 +64,10 @@ def main(argv=None) -> int:
 
     pairs = np.array([(a, b) for a in range(C) for b in range(a + 1, C)], np.int32)
     t0 = time.time()
-    res = matching.match_pairs_float(feats.desc, feats.kp.mask, pairs, ratio=0.85)
+    # the reference calls its dense matcher, which in the port is K5's plain
+    # version: the dispatched entry launches K5 on a card (and runs that
+    # plain version on the CPU), so no plain version lies on the card's path
+    res = matching.match_pairs_float_auto(feats.desc, feats.kp.mask, pairs, ratio=0.85)
     print(f"[match] {int(res.valid.sum())} raw matches over {len(pairs)} pairs "
           f"in {time.time() - t0:.1f}s")
 

@@ -53,18 +53,35 @@ def extract_data_parallel(images: np.ndarray, device, group=None, **kw) -> featu
                              cat(f.desc_bits))
 
 
+# the map-sharded case's two query cameras: R = I, world -> camera t (F16)
+SHARDED_POSES_T = ((-0.3, 0.1, 9.0), (0.4, -0.2, 8.5))
+
+
 def sharded_case(n: int):
     """The map-sharded localization case of a world of n: a random map of
-    64*n landmarks on the CPU, two queries of 64 features (numpy) and their
-    RANSAC noise (64 hypotheses), drawn on the CPU from seeds, so a world
-    on cards, one on CPUs and a single process all see the same draw."""
+    64*n landmarks on the CPU and two queries of 64 features that observe
+    64 of its landmarks from the cameras ``SHARDED_POSES_T`` (the
+    landmarks' descriptors with 0.05 of noise a component, their
+    projections with 0.5 px), and their RANSAC noise (64 hypotheses), all
+    drawn on the CPU from seeds, so a world on cards, one on CPUs and a
+    single process all see the same draw.  F16: random queries against a
+    random map matched nothing past the similarity floor, so the pose was
+    noise, and K4's bf16 sums on a card and the plain version on the CPU
+    left it 6.7e-4 m apart; these queries' matches are clear and their
+    pose well posed."""
     lmap = example_map(64 * n, 8, 128, 32, 3, "cpu")
+    X, desc = lmap.X.numpy(), lmap.lm_desc.numpy()
     rng = np.random.default_rng(4)
     Kq = 64
-    qd = rng.standard_normal((2, Kq, 128)).astype(np.float32)
-    qd /= np.linalg.norm(qd, axis=-1, keepdims=True)
-    quv = rng.uniform(0, 320, (2, Kq, 2)).astype(np.float32)
     intr = np.asarray([280.0, 280.0, 160.0, 120.0, 0, 0, 0], np.float32)
+    qd = np.empty((2, Kq, 128), np.float32)
+    quv = np.empty((2, Kq, 2), np.float32)
+    for b, t in enumerate(SHARDED_POSES_T):
+        ids = rng.choice(len(X), Kq, replace=False)
+        Xc = X[ids] + np.asarray(t)
+        quv[b] = Xc[:, :2] / Xc[:, 2:3] * intr[:2] + intr[2:4] + 0.5 * rng.standard_normal((Kq, 2))
+        d = desc[ids] + 0.05 * rng.standard_normal((Kq, 128))
+        qd[b] = d / np.linalg.norm(d, axis=-1, keepdims=True)
     g = gumbel_noise((2, 64, Kq), device="cpu", generator=torch.Generator().manual_seed(2))
     return lmap, qd, quv, np.ones((2, Kq), bool), intr, g
 

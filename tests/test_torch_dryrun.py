@@ -77,3 +77,35 @@ def test_dryrun_obs_problem_holds_a_ulp():
         moved = max(float(np.max(np.abs(_obs_costs(X_ * (1 + e), t_, c_, p_, uv_) - base)
                                  / base)) for e in (1e-7, -1e-7))
         assert (moved > 1e-4) == worse, moved
+
+
+def test_dryrun_sharded_case_is_well_posed():
+    """F16: the map-sharded case's queries observe 64 of the map's
+    landmarks from two known cameras, so every feature matches its
+    landmark, each pose lands within 0.05 m of its camera, and moving the
+    queries' pixels by 1e-3 px moves t by under 1e-4 m (the tolerance that
+    ``chip_smoke.py`` phase 40 holds the card's world to the CPU's).  The
+    earlier case's random queries against the random map matched nothing
+    past the similarity floor: no inlier, a pose of noise."""
+    import torch
+
+    from sfmx_torch.localize.localize import localize_batch_streaming
+
+    lmap, qd, quv, qm, intr, g = dryrun.sharded_case(4)
+    T = torch.from_numpy
+
+    def loc(d, uv):
+        return localize_batch_streaming(lmap, T(d), T(uv), T(qm), T(intr), gumbel=g,
+                                        k_hypotheses=g.shape[1])
+
+    res = loc(qd, quv)
+    assert res.n_inliers.tolist() == [64, 64]
+    truth = -np.asarray(dryrun.SHARDED_POSES_T)          # camera centers (R = I)
+    assert np.abs(res.center.numpy() - truth).max() < 0.05
+    moved = loc(qd, quv + np.float32(1e-3))
+    assert float((moved.t - res.t).abs().max()) < 1e-4
+    rng = np.random.default_rng(4)
+    rd = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ruv = rng.uniform(0, 320, (2, 64, 2)).astype(np.float32)
+    assert loc(rd, ruv).n_inliers.tolist() == [0, 0]

@@ -319,3 +319,48 @@ def test_register_rigid_anchored_rejects_disagreement():
     with pytest.raises(jreg.RegistrationError) as ej:
         jreg.register_rigid_anchored(Ra_c, Rb_c, Pa, Pb)
     assert ei.value.attempts == ej.value.attempts
+
+
+@pytest.mark.parametrize("far_m", [None, 200.0])
+def test_a_far_point_loosens_both_registrations(overlapping_sessions, far_m):
+    """F15 (a sensitivity both packages share): the verified registration
+    scales its inlier threshold and its split-half gate with session A's
+    extent, the bounding box of every alive landmark.  With 30 of the 299
+    correspondences wrong (session B's descriptors permuted among 30
+    landmarks) both verify the same 269 inliers; one more alive landmark of
+    A, unobserved and 200 m out (as a low-parallax point a build leaves),
+    takes the threshold past the wrong matches, and both packages, with
+    the same draws, count all 299 as inliers and reject every attempt at
+    the split-half gate."""
+    from sfmx.recon.merge import landmark_descriptors
+
+    sc, s1, s2 = overlapping_sessions
+    d1 = landmark_descriptors(s1[0], s1[1], s1[4])
+    d2 = landmark_descriptors(s2[0], s2[1], s2[4])
+    rng = np.random.default_rng(1)
+    sub = rng.choice(np.flatnonzero(np.array(s2[0].X_alive)), 30, replace=False)
+    d2[sub] = d2[rng.permutation(sub)]
+    Xa, alive_a = np.array(s1[0].X), np.array(s1[0].X_alive)
+    if far_m is not None:
+        far = (Xa[alive_a].mean(0) + np.array([far_m, 0.0, 0.0])).astype(Xa.dtype)
+        Xa, alive_a = np.concatenate([Xa, far[None]]), np.concatenate([alive_a, [True]])
+        d1 = np.concatenate([d1, np.zeros((1, d1.shape[1]), d1.dtype)])
+    args = (Xa, d1, alive_a, np.array(s2[0].X), d2, np.array(s2[0].X_alive))
+    sa, sb = port_scene_dict(s1), port_scene_dict(s2)
+    port = lambda: treg.register_landmarks_verified(  # noqa: E731
+        *args, scene_a=sa, scene_b=sb, device="cpu", noise=jax_draws(jax.random.PRNGKey(3)))
+    ref = lambda: jreg.register_landmarks_verified(  # noqa: E731
+        *args, scene_a=sa, scene_b=sb, key=jax.random.PRNGKey(3))
+    if far_m is None:
+        got, want = port(), ref()
+        _same_reg(got, want)
+        assert got.inliers.sum() == 269
+        return
+    with pytest.raises(treg.RegistrationError) as got:
+        port()
+    with pytest.raises(jreg.RegistrationError) as want:
+        ref()
+    assert [a.get("inliers") for a in got.value.attempts] == \
+        [a.get("inliers") for a in want.value.attempts] == [299] * 4
+    assert all(a["fail"].startswith("split-half instability")
+               for a in got.value.attempts + want.value.attempts)
