@@ -5,9 +5,11 @@ final BA, the merge of two sessions and self-calibration included), the
 command line end to end, streaming, oriented and SIFT extraction, and the
 multi-device paths (routed map shards, map-sharded localization, the
 point-sharded BA and the dry run, on one card), the port of bench.py
-(``sfmx_torch.bench``) and the evaluation configs (``sfmx_torch.run_configs``,
-the port of bench/run_configs.py), once on one CUDA card; or (``--cards 4``)
-the multi-device paths on four cards.
+(``sfmx_torch.bench``), the evaluation configs (``sfmx_torch.run_configs``,
+the port of bench/run_configs.py) and ``serve`` started as its own process,
+once on one CUDA card; or (``--cards 4``) the multi-device paths on four
+cards, with ``serve --shards 4``, 5-serve and config 4 across them and two
+ranks started apart over ``tcp://``.
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
                                python3 chip_smoke.py --cards 4 [--share-card]
@@ -260,10 +262,27 @@ Phases (each asserts; any failure exits non-zero):
                   launches counted from 0: K1-K3 and K5 in the builds, the
                   segment sum in 3, 4, 5, 5-serve and 4-build's rank, K6-K8
                   exactly where a reconstruction took the dense BA path
+ 44. serve process — the README's deployment: ``python -m
+                  sfmx_torch.cli.main serve --map demo=<phase 25's map>
+                  --port P`` started with ``subprocess.Popen`` (its own
+                  process, its output in files under .chip_scratch/cli/),
+                  4 bursts of 16 concurrent PNG POSTs of phase 25's
+                  held-out frames over 127.0.0.1, /maps and /stats, then
+                  SIGINT.  Gates: ready within 300 s, phase 10's (median
+                  center error < 0.2 m after the map's similarity, >= 75 %
+                  localized), /stats counting every request in fewer
+                  batches, each answer within 5 cm of the in-process
+                  ``make_service``'s for the same image (at most a tenth of
+                  the queries localized by one only), exit code 0 within
+                  30 s of SIGINT, K1-K3 in the server's launches during the
+                  traffic (its shutdown line less its loaded line, both
+                  printed by ``serve``); p50/p95/p99 at the client,
+                  requests/s, the card's busy share (nvidia-smi)
 
-With ``--cards 4`` only the device check, the build and phases 34-40 and 43 run
-(the map-scale map, the serving frames and 64 frames of the walk are made
-as above first).  It needs four visible cards of one name and power limit
+With ``--cards 4`` the device check, the build, the map-scale map, phases
+3, 9 and 13-18 (every kernel against its plain version, the front end and
+the 96-frame build: the run's kernels line), then phases 34-40, 43 and 45-48
+run.  It needs four visible cards of one name and power limit
 (fewer raise, with the count), spawns worlds of 4, 2 and 1 ranks, each
 rank on its own card under NCCL (``sfmx_torch.dist.worlds``: the parent
 writes each phase's inputs once under .chip_scratch/multicard/, every rank
@@ -322,9 +341,28 @@ cuda:0 (routed shards on cuda:0).
                   sizes 4 and 1, a card a rank: every rank's R, t, X and
                   costs bit-identical, the cost monotone, world 4's final
                   cost within 5 % of world 1's, the segment sum on every rank
-That mode's last two lines are a ``multicard`` JSON (each phase's numbers,
-each rank's launches by world and phase, the serving run's) and the
-device JSON; the cards' nvidia-smi lines come before them.
+ 45. serve process on cards — phase 44 with ``--shards 4``: phase 25's map
+                  built again by build-map on cuda:0, the server's shard i on
+                  cuda:i (from its loaded line), each card's busy share
+                  sampled from nvidia-smi over the traffic
+ 46. 5-serve on cards — ``run_configs.config5_serve`` at 48 frames a
+                  session, its four shards on cuda:0-3 (``load_map``'s
+                  placement, recorded), 5-serve's own gates
+ 47. config 4 on cards — ``run_configs.config4`` (the harness) at world
+                  sizes 4 and 1 in this call: every rank's R, t, X, costs
+                  bit-identical, each cost trace monotone, world 4's final
+                  cost within 5 % of world 1's; LM iterations/s at both
+ 48. ranks apart — two NCCL ranks on cuda:0 and cuda:1, each its own
+                  ``subprocess.Popen`` of ``python -m sfmx_torch.dist.mesh
+                  sfmx_torch.dist.worlds:world`` joined over
+                  ``tcp://127.0.0.1:<free port>`` (no spawn, no file://
+                  store), running phase 39's ba-512 step at world 2:
+                  bit-equal to phase 39's spawned world 2
+That mode's last lines are a ``multicard`` JSON (each phase's numbers,
+each rank's launches by world and phase, the serving runs'), the cards'
+nvidia-smi lines, the kernels JSON (as the default run's, launches summed
+over every rank, the server process and the one-card paths) and the device
+JSON.
 
 The default run's last two lines are the kernel JSON and the device JSON.
 K4's entry holds the serving batch's shape and, as ``tail_ms``, ``tail_bound_ms`` and
@@ -2766,6 +2804,21 @@ def stage_walls(stages: dict) -> str:
     return ", ".join(f"{k} {r['wall_s']:.3f} s" for k, r in stages.items())
 
 
+def write_cli_frames(frames, tex) -> tuple[list, list, np.ndarray]:
+    """The walk's frames as 8-bit PNG files under CLI_ROOT/walk and
+    N_LOOP_QUERIES held-out frames (midway between the walk's poses) under
+    CLI_ROOT/queries.  Returns (the frame files, the query files, the
+    queries' true centers)."""
+    from examples import room
+    from sfmx_torch.run_configs import write_png_frames
+
+    paths = write_png_frames(CLI_ROOT / "walk", frames)
+    mids = room.walk_poses(N_BAND - 1)[1::2]
+    qposes = [mids[i] for i in np.round(np.linspace(0, N_BUILD - 2, N_LOOP_QUERIES)).astype(int)]
+    queries = write_png_frames(CLI_ROOT / "queries", render(tex, qposes))
+    return paths, queries, np.stack([e for _R, _t, e in qposes])
+
+
 def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, dict]:
     """Phase 25.  The CLI at full width (``PipelineConfig()`` defaults, 1024
     keypoints, VGA), every command through ``main([...]) --device cuda``,
@@ -2785,19 +2838,14 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
 
     import torch
 
-    from examples import room
     from sfmx_torch.kernels import _build
     from sfmx_torch.mapstore.scene import load_manifest
-    from sfmx_torch.run_configs import write_png_frames
     from sfmx_torch.solvers import umeyama
 
     if CLI_ROOT.exists():
         shutil.rmtree(CLI_ROOT)
     walk = CLI_ROOT / "walk"
-    paths = write_png_frames(walk, frames)
-    mids = room.walk_poses(N_BAND - 1)[1::2]
-    qposes = [mids[i] for i in np.round(np.linspace(0, N_BUILD - 2, N_LOOP_QUERIES)).astype(int)]
-    write_png_frames(CLI_ROOT / "queries", render(tex, qposes))
+    paths, queries, q_eyes = write_cli_frames(frames, tex)
     eyes = np.stack([eye for _R, _t, eye in poses])
     dv = ["--device", str(dev)]
     focal = CLI_GEOMETRY()
@@ -2823,7 +2871,7 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
     res = json.loads(out)
     centers = torch.as_tensor([r["center"] for r in res], dtype=torch.float32, device=dev)
     world = umeyama.apply_sim3(*sim, centers).cpu().numpy()
-    errs = np.linalg.norm(world - np.stack([e for _R, _t, e in qposes]), axis=1)
+    errs = np.linalg.norm(world - q_eyes, axis=1)
     n_loc = sum(r["confidence"] > 0 for r in res)
     log(f"[cli] localize of {len(res)} held-out frames in {wall:.3f} s: center errors "
         f"median {np.median(errs):.4f} m (gate < {MEDIAN_GATE_M}), max {errs.max():.4f}; "
@@ -2894,7 +2942,8 @@ def phase_cli(frames, poses, tex, dev, smi: str, ate18: float) -> tuple[dict, di
     log(f"[cli] command walls (s, the card synchronized) "
         f"{json.dumps({k: round(v, 3) for k, v in cmds.items()})}; launches "
         f"{json.dumps(launches)}")
-    return launches, {"store": store, "stats": st, "ate": ate}
+    return launches, {"store": store, "stats": st, "ate": ate, "queries": queries,
+                      "q_eyes": q_eyes}
 
 
 def phase_streaming(frames, dev, smi: str) -> dict:
@@ -3643,6 +3692,444 @@ def phase_dryrun(dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Deployments started as processes (phases 44-48): ``serve`` as its own
+# process (44; 45 with four shards on four cards), and on four cards the
+# harness's 5-serve (46) and config 4 (47), and ranks started apart (48)
+# ---------------------------------------------------------------------------
+
+SERVE_PROC_BURSTS, SERVE_PROC_CONCURRENT = 4, 16   # phases 44-45: bursts of concurrent POSTs
+SERVE_PROC_START_S = 300        # the server's imports, map load and warm-up
+SERVE_PROC_STOP_S = 30          # SIGINT to exit
+SERVE_PROC_REQUEST_S = 120      # one request's answer
+# A served answer against the in-process service's for the same image: the
+# two draw their RANSAC noise from one seed but in batches the arrivals
+# decide, so a query's hypotheses differ; after the Gauss-Newton refine on
+# its inliers a localized query's center moves by millimetres.  5 cm is a
+# quarter of the query gate (MEDIAN_GATE_M); both answers of a query must
+# agree on whether it localized, but for SERVE_PROC_FLIPS of them (a query
+# at the inlier gate localizes under one draw and not another).
+SERVE_PROC_TOL_M = 0.05
+SERVE_PROC_FLIPS = 0.1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def json_lines(path) -> list[dict]:
+    out = []
+    for line in Path(path).read_text().splitlines():
+        with contextlib.suppress(ValueError):
+            rec = json.loads(line)
+            if isinstance(rec, dict):
+                out.append(rec)
+    return out
+
+
+def get_json(url: str, timeout: float = 5.0) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+class Sampler:
+    """Each card's ``utilization.gpu`` (nvidia-smi: the share of its sample
+    period in which a kernel ran), sampled in a thread while the block runs;
+    ``share`` is each card's mean over the samples."""
+
+    def __init__(self, period_s: float = 0.1):
+        import threading
+
+        self.period_s, self.samples, self._stop = period_s, [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._error = None
+
+    def _run(self):
+        try:
+            while not self._stop.is_set():
+                out = subprocess.run(["nvidia-smi", "--query-gpu=index,utilization.gpu",
+                                      "--format=csv,noheader,nounits"], capture_output=True,
+                                     text=True, timeout=10, check=True)
+                self.samples.append({int(i): float(u) / 100 for i, u in
+                                     (ln.split(",") for ln in out.stdout.strip().splitlines())})
+                self._stop.wait(self.period_s)
+        except Exception as e:          # raised again in the caller's thread
+            self._error = e
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        if self._error is not None and exc[0] is None:
+            raise self._error
+
+    def share(self) -> dict:
+        cards = sorted({k for s in self.samples for k in s})
+        return {f"cuda:{c}": float(np.mean([s[c] for s in self.samples if c in s]))
+                for c in cards}
+
+
+def start_server(argv: list[str], tag: str, port: int, map_id: str):
+    """``python -m sfmx_torch.cli.main serve ...`` as its own process, its
+    output in files under CLI_ROOT; waits until GET /maps lists ``map_id``.
+    Returns (the process, its stdout path, its stderr path, seconds to
+    ready).  Raises (after killing it) if it exits or misses
+    SERVE_PROC_START_S."""
+    import os
+
+    CLI_ROOT.mkdir(parents=True, exist_ok=True)
+    out_p, err_p = CLI_ROOT / f"{tag}.out", CLI_ROOT / f"{tag}.err"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    with open(out_p, "w") as fo, open(err_p, "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-m", "sfmx_torch.cli.main", "serve", *argv],
+                                cwd=ROOT, env=env, stdout=fo, stderr=fe)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"{tag}: the server exited {proc.returncode} before it "
+                                   f"answered:\n{err_p.read_text()[-4000:]}")
+            with contextlib.suppress(OSError, ValueError):
+                if map_id in get_json(f"http://127.0.0.1:{port}/maps", 2.0)["maps"]:
+                    return proc, out_p, err_p, time.perf_counter() - t0
+            if time.perf_counter() - t0 > SERVE_PROC_START_S:
+                raise TimeoutError(f"{tag}: no answer on port {port} in {SERVE_PROC_START_S} s")
+            time.sleep(0.5)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+
+
+def stop_server(proc, tag: str, err_p) -> tuple[int, float]:
+    """SIGINT, then wait SERVE_PROC_STOP_S for its exit; returns (exit code,
+    seconds).  Past the wait the process is killed and this raises."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=SERVE_PROC_STOP_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise TimeoutError(f"{tag}: still running {SERVE_PROC_STOP_S} s after SIGINT:\n"
+                           f"{Path(err_p).read_text()[-4000:]}")
+    return rc, time.perf_counter() - t0
+
+
+def phase_serve_process(store: str, queries: list, q_eyes, map_eyes, dev, smi: str,
+                        shards: int = 1, share: bool = False,
+                        geometry: list[str] | None = None) -> tuple[dict, dict]:
+    """Phase 44 (45: ``shards`` 4, one a card).  The README's deployment:
+    ``python -m sfmx_torch.cli.main serve --map demo=<store> --port P
+    [--shards 4]`` started as its own process on the map phase 25's
+    build-map wrote, ``queries`` (PNG files of held-out frames) POSTed over
+    127.0.0.1 in SERVE_PROC_BURSTS bursts of SERVE_PROC_CONCURRENT
+    concurrent requests, /maps and /stats read, then SIGINT.  Gates: the
+    server ready within SERVE_PROC_START_S, every answer 200, phase 10's
+    (median center error < 0.2 m after the map's similarity to the truth,
+    >= 75 % localized), /stats counting every request in fewer batches,
+    each answer within SERVE_PROC_TOL_M of the in-process service's
+    (``make_service`` on the same store, the same bursts) with at most
+    SERVE_PROC_FLIPS of the queries localized by one and not the other,
+    the server's K1-K3 launches during the traffic (its shutdown line less
+    its loaded line) > 0, exit code 0 within SERVE_PROC_STOP_S of SIGINT,
+    and the shards on cuda:0..3 (phase 45; ``share``: the one-card
+    rehearsal, all on cuda:0).  Each card's busy share over the traffic is
+    sampled from nvidia-smi.  Returns (the traffic's launches, the phase's
+    numbers)."""
+    import asyncio
+    import base64
+
+    import aiohttp
+    import torch
+
+    from sfmx_torch.cli.config import load_config
+    from sfmx_torch.cli.main import make_service
+    from sfmx_torch.serve.server import decode_image_payload
+    from sfmx_torch.solvers import umeyama
+
+    geometry = CLI_GEOMETRY() if geometry is None else geometry
+    tag = "serve-process" if shards == 1 else f"serve-process-{shards}"
+    cfg = load_config(None, geometry[1::2])
+    pngs = [Path(q).read_bytes() for q in queries][:SERVE_PROC_CONCURRENT]
+    payloads = [base64.b64encode(b).decode() for b in pngs]
+    q_eyes = np.asarray(q_eyes)[:len(pngs)]
+    port = free_port()
+    argv = ["--map", f"demo={store}", "--port", str(port), *geometry, "--device", dev.type]
+    if shards > 1:
+        argv += ["--shards", str(shards)]
+    proc, out_p, err_p, ready_s = start_server(argv, tag, port, "demo")
+    try:
+        loaded = next(r for r in json_lines(out_p) if r.get("serve") == "loaded")
+        base = f"http://127.0.0.1:{port}"
+
+        sampler = Sampler() if dev.type == "cuda" else contextlib.nullcontext()
+
+        async def traffic():
+            timeout = aiohttp.ClientTimeout(total=SERVE_PROC_REQUEST_S)
+            async with aiohttp.ClientSession(timeout=timeout) as session:
+                async def post(i):
+                    async with session.post(f"{base}/localize",
+                                            json={"map_id": "demo", "image": payloads[i]}) as r:
+                        return r.status, await r.json()
+                outs, lat, walls = [], [], []
+                for _ in range(SERVE_PROC_BURSTS):
+                    t0 = time.perf_counter()
+
+                    async def one(i):
+                        t1 = time.perf_counter()
+                        o = await post(i)
+                        lat.append((time.perf_counter() - t1) * 1e3)
+                        return o
+                    outs += await asyncio.gather(*[one(i) for i in range(len(payloads))])
+                    walls.append(time.perf_counter() - t0)
+                return outs, lat, walls
+
+        with sampler:
+            answers, lat, walls = asyncio.run(traffic())
+        maps = get_json(f"{base}/maps")
+        stats = get_json(f"{base}/stats")
+    finally:
+        if proc.poll() is None:
+            rc, stop_s = stop_server(proc, tag, err_p)
+        else:
+            rc, stop_s = proc.returncode, 0.0
+    stopped = [r for r in json_lines(out_p) if r.get("serve") == "stopped"]
+    assert rc == 0 and stopped, (f"{tag}: exit code {rc}, shutdown line {bool(stopped)}:\n"
+                                 f"{err_p.read_text()[-4000:]}")
+    launches = {k: v - loaded["launches"].get(k, 0) for k, v in stopped[0]["launches"].items()
+                if v - loaded["launches"].get(k, 0)}
+    assert all(st == 200 for st, _ in answers), [st for st, _ in answers]
+    outs = [o for _, o in answers]
+
+    # the same bursts through the in-process service on the same store
+    svc = make_service([f"demo={store}"], cfg, dev, shards=shards)
+    imgs = [decode_image_payload(b, resize_to=cfg.resize_to) for b in pngs]
+
+    async def in_process():
+        await svc.start()
+        try:
+            res = []
+            for _ in range(SERVE_PROC_BURSTS):
+                res += await asyncio.gather(*[svc.localize("demo", image=im) for im in imgs])
+            return res
+        finally:
+            await svc.stop()
+
+    local = asyncio.run(in_process())
+    _ate, sim = store_ate(store, map_eyes, dev)
+    world = lambda os_: umeyama.apply_sim3(*sim, torch.as_tensor(
+        [o["center"] for o in os_], dtype=torch.float32, device=dev)).cpu().numpy()
+    eyes = np.tile(q_eyes, (SERVE_PROC_BURSTS, 1))
+    errs = np.linalg.norm(world(outs) - eyes, axis=1)
+    min_inl = cfg.localize.min_inliers
+    loc = np.array([o["n_inliers"] >= min_inl for o in outs])
+    loc_in = np.array([o["n_inliers"] >= min_inl for o in local])
+    both = loc & loc_in
+    diff = np.linalg.norm(world(outs) - world(local), axis=1)
+    flips = int((loc != loc_in).sum())
+    n = len(outs)
+    placement = loaded["maps"]["demo"]
+    numbers = {"ready_s": ready_s, "stop_s": stop_s, "requests_per_s": n / sum(walls),
+               "p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+               "p99_ms": float(np.percentile(lat, 99)), "server_stats": stats,
+               "median_err_m": float(np.median(errs)), "localized": float(loc.mean()),
+               "max_diff_m": float(diff[both].max()) if both.any() else None, "flips": flips,
+               "placement": placement}
+    if dev.type == "cuda":
+        numbers["busy_share"] = sampler.share()
+    log(f"[{tag}] serve {' '.join(argv)}: ready in {ready_s:.1f} s, shards "
+        f"{json.dumps(placement)}; /maps {json.dumps(maps)}; {SERVE_PROC_BURSTS} bursts of "
+        f"{len(payloads)} concurrent PNG POSTs over 127.0.0.1: burst walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, {numbers['requests_per_s']:.2f} requests/s, "
+        f"client latency p50 {numbers['p50_ms']:.1f} ms, p95 {numbers['p95_ms']:.1f} ms, p99 "
+        f"{numbers['p99_ms']:.1f} ms; /stats {json.dumps(stats)}; median center error "
+        f"{numbers['median_err_m']:.4f} m (gate < {MEDIAN_GATE_M}), {int(loc.sum())}/{n} "
+        f"localized; against the in-process service: {int(both.sum())} localized by both, "
+        f"centers at most {numbers['max_diff_m']} m apart (tolerance {SERVE_PROC_TOL_M}), "
+        f"{flips} localized by one only; SIGINT -> exit {rc} in {stop_s:.2f} s; the traffic's "
+        f"launches {json.dumps(launches)}"
+        + (f"; busy share (nvidia-smi utilization.gpu, {len(sampler.samples)} samples) "
+           f"{json.dumps({k: round(v, 3) for k, v in numbers['busy_share'].items()})}"
+           if dev.type == "cuda" else "") + f"; on {smi}")
+    assert np.isfinite(errs).all() and np.median(errs) < MEDIAN_GATE_M, errs
+    assert loc.mean() >= 0.75, f"{tag}: only {int(loc.sum())}/{n} localized"
+    assert stats["requests"] == n and stats["image_requests"] == n and stats["batches"] < n, stats
+    assert both.any() and diff[both].max() <= SERVE_PROC_TOL_M, diff[both]
+    assert flips <= SERVE_PROC_FLIPS * n, flips
+    if dev.type == "cuda":
+        assert all(launches.get(k, 0) > 0 for k in EXTRACT_KERNELS), launches
+        want = [f"cuda:{0 if share else i}" for i in range(shards)]
+        assert [p["device"] for p in placement] == want, placement
+    return launches, numbers
+
+
+def cli_map(frames, poses, tex, dev, smi: str) -> dict:
+    """``--cards 4``'s own copy of phase 25's map: the walk's first N_BUILD
+    frames as PNG files under CLI_ROOT, ``build-map`` on cuda:0 (gates:
+    every frame registered, ATE < 0.1 m) and phase 25's held-out query
+    PNGs.  Returns what ``phase_serve_process`` takes."""
+    import shutil
+
+    if CLI_ROOT.exists():
+        shutil.rmtree(CLI_ROOT)
+    paths, queries, q_eyes = write_cli_frames(frames, tex)
+    store = str(CLI_ROOT / "map")
+    out, stages, wall = run_cli(["build-map", str(CLI_ROOT / "walk"), "-o", store,
+                                 *CLI_GEOMETRY(), "--device", str(dev)])
+    rec = json.loads(out.strip().splitlines()[-1])
+    eyes = np.stack([eye for _R, _t, eye in poses])
+    ate, _ = store_ate(store, eyes, dev)
+    log(f"[cli-map] build-map of {len(paths)} frames in {wall:.3f} s: {json.dumps(rec)}, ATE "
+        f"{ate:.4f} m; on {smi}")
+    assert rec["registered"] == len(paths) and ate < ATE_GATE_M, (rec, ate)
+    return {"store": store, "queries": queries, "q_eyes": q_eyes, "eyes": eyes}
+
+
+def phase_serve_config_cards(n: int, share: bool, dev, smi: str) -> dict:
+    """Phase 46: ``run_configs.config5_serve`` at CONFIGS_SERVE_FPS frames a
+    session with its four shards on the visible cards (``load_map``'s
+    placement, recorded: shard i on cuda:i; ``share``: all on cuda:0),
+    under 5-serve's own gates.  Returns (its numbers, its launches)."""
+    from sfmx_torch import run_configs as rc
+    from sfmx_torch.serve.server import LocalizationService, MapShardRouter
+
+    placed, load_map = [], LocalizationService.load_map
+
+    def recording(self, map_id, lmap, intr, cfg=None, *, shards: int = 1):
+        load_map(self, map_id, lmap, intr, cfg, shards=shards)
+        obj = self.maps[map_id][0]
+        placed.append([str(d) for d in obj.devices] if isinstance(obj, MapShardRouter)
+                      else [str(obj.X.device)])
+
+    LocalizationService.load_map = recording
+    try:
+        line, got, _, dense = config_run(f"config 5-serve on {n} cards", rc.config5_serve, dev,
+                                         smi, dev, fps=CONFIGS_SERVE_FPS)
+    finally:
+        LocalizationService.load_map = load_map
+    log(f"[serve-config-cards] 5-serve's shards on {placed}")
+    assert line["pass"], "config 5-serve failed its gates"
+    assert placed == [["cuda:0"] * 4 if share else [f"cuda:{i}" for i in range(4)]], placed
+    check_config("config 5-serve on the cards", got, dense,
+                 EXTRACT_KERNELS + ("match_pairs_fused", "segment_sum"))
+    keys = ("merged_ate_m", "queries_ok", "query_err_median_m", "recall_at_8",
+            "latency_p95_ms", "build_s", "pass")
+    return {**{k: line[k] for k in keys}, "shards_on": placed[0]}, got
+
+
+def phase_config4_cards(n: int, device: str, backend, dev, smi: str) -> tuple[dict, dict]:
+    """Phase 47: ``run_configs.config4`` (the harness's config 4: the
+    2,048-camera corridor's block BA, 8 LM x 25 CG) at world sizes ``n`` and
+    1 in this call, a card a rank under NCCL (``device`` "cuda", ``backend``
+    None; the one-card rehearsal: gloo ranks on cuda:0).  Gates: every rank's R, t, X and costs bit-identical, each
+    world's cost monotone, world ``n``'s final cost within BLOCK_RTOL
+    (phase 38's) of world 1's, the segment sum on every rank; LM
+    iterations/s at both sizes.  Returns (the numbers, each world's ranks'
+    launches)."""
+    from sfmx_torch import run_configs as rc
+    from sfmx_torch.dist import mesh
+
+    out, launches = {}, {}
+    for w in (n, 1):
+        line, _got, ranks, _ = config_run(f"config 4 at world {w}", rc.config4, dev, smi, device,
+                                          world_size=w, backend=backend)
+        launches[str(w)] = check_launched(f"config 4, world of {w}",
+                                          [r["launches"] for r in ranks], ("segment_sum",))
+        costs = ranks[0]["costs"]
+        log(f"[config4-cards] world of {w} ({backend or mesh.default_backend(device)} on "
+            f"{device}): "
+            f"{line['lm_iters_per_s']:.2f} LM iterations/s, cost {costs[0]:.6f} -> "
+            f"{costs[-1]:.6f}; rank digests {[r['digest'][:12] for r in ranks]}; on {smi}")
+        assert len({r["digest"] for r in ranks}) == 1, f"world of {w}: ranks differ"
+        assert line["devices"] == w and np.isfinite(costs).all(), line
+        assert all(b <= a for a, b in zip(costs, costs[1:])), f"world of {w}: costs {costs}"
+        out[str(w)] = {"lm_iters_per_s": line["lm_iters_per_s"], "final_cost": line["final_cost"],
+                       "halo_fraction": line.get("halo_fraction")}
+    rel = abs(out[str(n)]["final_cost"] - out["1"]["final_cost"]) / out["1"]["final_cost"]
+    log(f"[config4-cards] final cost world {n} {out[str(n)]['final_cost']:.6f}, world 1 "
+        f"{out['1']['final_cost']:.6f}: relative difference {rel:.2e} (gate {BLOCK_RTOL}); LM "
+        f"iterations/s {out[str(n)]['lm_iters_per_s']:.2f} at world {n}, "
+        f"{out['1']['lm_iters_per_s']:.2f} at world 1")
+    assert rel <= BLOCK_RTOL, f"world {n} and world 1 costs differ by {rel}"
+    out["rel_cost"] = rel
+    return out, launches
+
+
+APART_TIMEOUT_S = 600           # phase 48: each rank process
+
+
+def phase_apart_cards(res, device: str, backend, smi: str) -> tuple[dict, list]:
+    """Phase 48: two ranks started apart, each its own ``subprocess.Popen``
+    of ``python -m sfmx_torch.dist.mesh sfmx_torch.dist.worlds:world``
+    against ``tcp://127.0.0.1:<free port>`` (``device`` "cuda", ``backend``
+    None: NCCL, rank r on cuda:r; the rehearsal: gloo on cuda:0), running phase 39's observation-sharded
+    ba-512 step at world 2 on phase 39's inputs.  Gates: each process exits
+    0 within APART_TIMEOUT_S (else it is killed), both ranks' R, t, X and
+    costs bit-equal to phase 39's spawned world 2, the segment sum on each
+    rank.  Returns (the numbers, each rank's launches)."""
+    import os
+    import shutil
+
+    from sfmx_torch.dist import mesh, worlds
+
+    d = MC_DIR / "apart"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shutil.copy(MC_DIR / "obs_ba.npz", d / "obs_ba.npz")
+    init = f"tcp://127.0.0.1:{free_port()}"
+    backend = backend or mesh.default_backend(device)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for r in range(2):
+            logs.append(d / f"rank{r}.log")
+            with open(logs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "sfmx_torch.dist.mesh", "sfmx_torch.dist.worlds:world",
+                     "--rank", str(r), "--world-size", "2", "--init-method", init, "--device",
+                     device, "--backend", backend, "--timeout", "120",
+                     "--args", json.dumps([str(d), ["obs_ba"]])],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=APART_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    assert rcs == [0, 0], f"ranks exited {rcs}:\n" + "\n".join(
+        p.read_text()[-3000:] for p in logs)
+    apart = worlds.load_results(d, "obs_ba", 2)
+    spawned = res[2]["obs_ba"]
+    keys = ("R", "t", "X", "costs")
+    equal = [worlds.digest(*(o[k] for k in keys)) == worlds.digest(*(spawned[0][k] for k in keys))
+             for o in apart]
+    launches = check_kernels("ranks started apart", apart, ("segment_sum",))
+    it = BA_SHAPE["lm_iters"]
+    log(f"[apart-cards] 2 ranks started apart ({backend} on {device}) over {init}: "
+        f"{wall:.1f} s (processes included), {it / float(apart[0]['wall_s']):.2f} LM "
+        f"iterations/s (phase 39's spawned world 2: "
+        f"{it / float(spawned[0]['wall_s']):.2f}); cost {float(apart[0]['costs'][-1]):.6f}; "
+        f"bit-equal to the spawned world 2 {equal}; launches rank 0 {json.dumps(launches[0])}; "
+        f"on {smi}")
+    assert all(equal), "ranks started apart differ from the spawned world"
+    return {"iters_per_s": it / float(apart[0]["wall_s"]), "wall_s": wall,
+            "bit_equal": all(equal)}, launches
+
+
+# ---------------------------------------------------------------------------
 # Four cards (phases 34-40): python3 chip_smoke.py --cards 4
 # ---------------------------------------------------------------------------
 
@@ -4219,7 +4706,8 @@ def phase_real_scene_cards(n: int, share: bool, smi: str) -> tuple[dict, dict]:
 
 
 def main_cards(n: int, share: bool) -> int:
-    """``--cards n``: phases 34-40 after the device check and the build."""
+    """``--cards n``: phases 34-40, 43 and 45-48 after the device check and
+    the build."""
     import torch
 
     name, smi = phase_device()
@@ -4242,12 +4730,25 @@ def main_cards(n: int, share: bool) -> int:
                                                 RENDER_WORKERS)
     own_frames = smoke_scenes.render_parallel(0, serve_poses()[:2], W_IMG, H_IMG, FOCAL_OWN,
                                               RENDER_WORKERS)
-    walk = smoke_scenes.render_parallel(0, smoke_scenes.loop_walk_poses(N_BAND)[:N_DP_FRAMES],
-                                        W_IMG, H_IMG, FOCAL, RENDER_WORKERS)
+    log(f"[inputs] serve frames rendered in {time.perf_counter() - t0:.1f} s")
+    # every kernel against its plain version on cuda:0 at the default run's
+    # shapes (phases 3, 9, 14, 17), and the one-card paths that launch K5-K10
+    # (phases 13 and 18): this run's kernels line
+    kstats = phase_kernels(serve_frames[:SERVE_BATCH], dev)
+    kstats["match_top2"] = phase_k4(big, serve_frames, dev, smi, False)
+    front_stats, front_launches, build_frames, build_poses = phase_front_end(dev, smi, False)
+    kstats.update(front_stats)
+    phase_ba_kernels(dev, smi, False)
+    kstats["segment_sum"] = phase_segment_sum(dev, smi)
+    *_, map_launches, ba_stats, _map_stats = phase_build_map(build_frames, build_poses, dev, smi,
+                                                             False)
+    kstats.update(ba_stats)
+    t0 = time.perf_counter()
+    walk = build_frames[:N_DP_FRAMES]
     inputs = write_multicard_inputs(big, serve_frames, walk, dev)
-    log(f"[inputs] serve and walk frames rendered, phase inputs written in "
-        f"{time.perf_counter() - t0:.1f} s")
-    res = run_worlds(n, "cuda:0" if share else "cuda", "gloo" if share else None)
+    log(f"[inputs] phase inputs written in {time.perf_counter() - t0:.1f} s")
+    rank_dev, backend = ("cuda:0", "gloo") if share else ("cuda", None)
+    res = run_worlds(n, rank_dev, backend)
     phases = {"34": {**cards, "links": phase_links(res[n]["collectives"], smi)}}
     links = phases["34"]["links"]
     phases["35"] = phase_dp_extract(res, walk, dev, smi)
@@ -4257,16 +4758,47 @@ def main_cards(n: int, share: bool) -> int:
     phases["39"] = phase_obs_cards(res, inputs["ba512"], links, dev, smi)
     phases["40"] = phase_dryrun_cards(res[n]["dryrun"], smi)
     phases["43"], real_scene_launches = phase_real_scene_cards(n, share, smi)
+    # the deployments started as processes, on the cards (phases 45-48)
+    cmap = cli_map(build_frames, build_poses, tex, dev, smi)
+    serve_proc_launches, phases["45"] = phase_serve_process(
+        cmap["store"], cmap["queries"], cmap["q_eyes"], cmap["eyes"], dev, smi, shards=n,
+        share=share)
+    phases["46"], serve_config_launches = phase_serve_config_cards(n, share, dev, smi)
+    phases["47"], config4_launches = phase_config4_cards(n, rank_dev, backend, dev, smi)
+    phases["48"], apart_launches = phase_apart_cards(res, rank_dev, backend, smi)
     launches = {f"world{w}": {p: ([json.loads(str(o["json"]))["launches"] for o in outs]
                                   if p == "dryrun" else rank_launches(outs))
                               for p, outs in by_phase.items() if p != "collectives"}
                 for w, by_phase in res.items()}
     launches["serve"] = serve_launches
     launches["real_scene"] = real_scene_launches
+    launches["serve_process"] = serve_proc_launches
+    launches["serve_config"] = serve_config_launches
+    launches["config4"] = config4_launches
+    launches["apart"] = apart_launches
+    # each kernel's launches on this run's paths: every rank, the server
+    # process, the one-card paths above
+    path_launches = {k: 0 for k in KERNELS}
+
+    def add(got):
+        if isinstance(got, dict) and not any(isinstance(v, (dict, list)) for v in got.values()):
+            for k, v in got.items():
+                if k in path_launches:
+                    path_launches[k] += v
+        else:
+            for g in (got.values() if isinstance(got, dict) else got):
+                add(g)
+
+    add([front_launches, map_launches, launches])
+    log(f"[counters] the four-card run's launches by kernel {json.dumps(path_launches)}")
+    assert all(v > 0 for v in path_launches.values()), path_launches
+    kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
+                "launches": path_launches[k], **kstats[k]} for k in KERNELS]
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the device check")
+    print(json.dumps({"multicard": {"phases": phases, "launches": launches}}))
     for line in cards["cards"]:
         print(line)
-    print(json.dumps({"multicard": {"phases": phases, "launches": launches}}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -4590,6 +5122,11 @@ def main() -> int:
     rest_paths["bench"] = phase_bench(dev, smi)
     # the evaluation configs (phase 42): each counted from 0
     rest_paths["configs"] = phase_configs(dev, smi)
+    # serve as its own process on phase 25's map (phase 44): the server's
+    # launches during the traffic, read from its own lines
+    rest_paths["serve process"], _ = phase_serve_process(
+        cli["store"], cli["queries"], cli["q_eyes"], np.stack([e for _R, _t, e in build_poses]),
+        dev, smi)
     kstats["match_top2"]["shard_ms"] = {str(n): v for n, v in k4_shard_ms.items()}
     ext = ("diffuse_segment", "response_levels", "describe_upright")
     ba = ("match_pairs_fused", "schur_cross_matvec", "ba_assemble_fused", "ba_cost_fused")
@@ -4597,7 +5134,7 @@ def main() -> int:
                  "determinism": ext + ba, "serve shards": ext, "sharded": ("match_top2",),
                  "dryrun": ext + ("match_top2", "match_pairs_fused"),
                  "bench": ext + ("match_top2",) + ba,
-                 "configs": ext + ("match_pairs_fused", "segment_sum")}
+                 "configs": ext + ("match_pairs_fused", "segment_sum"), "serve process": ext}
     for tag, got in rest_paths.items():
         log(f"[counters] {tag} launches {json.dumps(got)}")
         assert all(got.get(k, 0) > 0 for k in rest_need[tag]), f"{tag}: launches {got}"

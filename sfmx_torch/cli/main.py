@@ -163,14 +163,31 @@ def make_service(map_specs: Sequence[str], cfg: PipelineConfig, device, *,
 def serve(map_specs: Sequence[str], cfg: PipelineConfig, device, *, port: int = 8080,
           batch_window_ms: float = 5.0, max_batch: int = 32, shards: int = 1,
           warmup: bool = True):
-    """Serve the maps over HTTP until interrupted (``sfmx serve``)."""
+    """Serve the maps over HTTP until interrupted (``sfmx serve``).
+
+    Prints one JSON line when the maps are loaded and warmed up (each map's
+    devices and landmarks, the kernel launches so far) and one when the
+    server has stopped (SIGINT or SIGTERM): the launches since the process
+    started and the serving stats."""
     from aiohttp import web
 
+    from ..kernels import _build
     from ..serve import make_app
+    from ..serve.router import MapShardRouter
 
     service = make_service(map_specs, cfg, device, batch_window_ms=batch_window_ms,
                            max_batch=max_batch, shards=shards, warmup=warmup)
+    placement = {}
+    for map_id, (lmap, _intr, _cfg) in service.maps.items():
+        parts = list(zip(lmap.devices, lmap.shards)) if isinstance(lmap, MapShardRouter) \
+            else [(lmap.X.device, lmap)]
+        placement[map_id] = [{"device": str(d), "landmarks": int(m.X.shape[0])}
+                             for d, m in parts]
+    print(json.dumps({"serve": "loaded", "port": port, "maps": placement,
+                      "launches": dict(_build.LAUNCHES.counts)}), flush=True)
     web.run_app(make_app(service), port=port)
+    print(json.dumps({"serve": "stopped", "launches": dict(_build.LAUNCHES.counts),
+                      "stats": service.stats.snapshot()}), flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,18 @@ back from one to the other.
 ``spawn`` starts a world of processes on one host (``torch.multiprocessing``
 with the spawn start method), each joined to the group through a
 ``file://`` store in a fresh temporary directory, so concurrent worlds on
-one machine never share a port.  Across hosts, call ``init_group`` in each
-process with a ``tcp://`` address instead; nothing else changes.
+one machine never share a port.  Ranks started apart (one command a rank,
+on one host or several) join through a ``tcp://`` address instead: each
+process calls ``run_rank`` (or ``init_group``) with its own rank, the world
+size and the address of rank 0's store, e.g.
+
+    python -m sfmx_torch.dist.mesh MODULE:FUNCTION --rank R --world-size N \
+        --init-method tcp://HOST:PORT [--device cuda|cpu] [--args JSON list]
+
+in each of the N processes, rank 0's host listening on PORT.  The rank
+functions are the same as under ``spawn``.  ``--device cuda`` puts rank r on
+cuda:r; where a host's ranks do not start at 0, name each one's card
+(``--device cuda:<i>``).  Nothing here reads a cluster's environment.
 """
 from __future__ import annotations
 
@@ -75,8 +85,13 @@ def pad_to_multiple(x, m: int, axis: int = 0, fill=0):
     return np.pad(np.asarray(x), pads, constant_values=fill)
 
 
-def _rank_main(rank: int, fn, world_size: int, backend: str, init_method: str,
-               device: str, timeout: float, args: tuple) -> None:
+def run_rank(fn, rank: int, world_size: int, init_method: str, *, device: str = "cuda",
+             backend: str | None = None, timeout: float = 60.0, args: tuple = ()) -> None:
+    """Join the group as ``rank`` (``init_method``: ``file://`` or
+    ``tcp://``), run ``fn(rank, world_size, device, *args)`` on this rank's
+    device (``rank_device(rank, device)``), wait for every rank and leave
+    the group."""
+    backend = backend or default_backend(device)
     dev = rank_device(rank, device)
     init_group(backend, rank, world_size, init_method, timeout, dev)
     try:
@@ -84,6 +99,12 @@ def _rank_main(rank: int, fn, world_size: int, backend: str, init_method: str,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _rank_main(rank: int, fn, world_size: int, backend: str, init_method: str,
+               device: str, timeout: float, args: tuple) -> None:
+    run_rank(fn, rank, world_size, init_method, device=device, backend=backend,
+             timeout=timeout, args=args)
 
 
 def spawn(fn, world_size: int, *args, device: str = "cuda", backend: str | None = None,
@@ -112,3 +133,30 @@ def spawn(fn, world_size: int, *args, device: str = "cuda", backend: str | None 
                 p.kill()
                 p.join()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main(argv=None) -> None:
+    """One rank of a world whose ranks are started apart (module docstring)."""
+    import argparse
+    import importlib
+    import json
+
+    p = argparse.ArgumentParser(prog="python -m sfmx_torch.dist.mesh",
+                                description=main.__doc__)
+    p.add_argument("function", help="MODULE:FUNCTION, called as f(rank, world, device, *args)")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world-size", type=int, required=True)
+    p.add_argument("--init-method", required=True, help="tcp://HOST:PORT of rank 0's store")
+    p.add_argument("--device", default="cuda", help="cuda (rank r on cuda:r), cuda:<i> or cpu")
+    p.add_argument("--backend", default=None, help="nccl or gloo (default: by device)")
+    p.add_argument("--timeout", type=float, default=60.0, help="collective timeout, s")
+    p.add_argument("--args", default="[]", help="JSON list of the function's further arguments")
+    a = p.parse_args(argv)
+    mod, name = a.function.split(":")
+    fn = getattr(importlib.import_module(mod), name)
+    run_rank(fn, a.rank, a.world_size, a.init_method, device=a.device, backend=a.backend,
+             timeout=a.timeout, args=tuple(json.loads(a.args)))
+
+
+if __name__ == "__main__":
+    main()

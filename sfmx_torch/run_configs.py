@@ -400,13 +400,14 @@ def _write_rank(out_dir: str, rank: int, line: dict, **arrays) -> None:
 
 def _read_ranks(out_dir: str, n: int) -> tuple[dict, list[dict]]:
     """(rank 0's line, every rank's {"digest": of its R, t, X and costs,
-    "launches": counted from 0 over its run})."""
+    "costs": its cost trace, "launches": counted from 0 over its run})."""
     from .dist.worlds import digest
 
     ranks = []
     for r in range(n):
         with np.load(Path(out_dir) / f"rank{r}.npz") as z:
             ranks.append({"digest": digest(*(z[k] for k in ("R", "t", "X", "costs"))),
+                          "costs": z["costs"].tolist(),
                           "launches": json.loads(str(z["launches"]))})
     return json.loads((Path(out_dir) / "line.json").read_text()), ranks
 

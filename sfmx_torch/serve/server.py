@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import contextlib
 import dataclasses
 import io
 import time
@@ -141,7 +142,8 @@ class LocalizationService:
         self._extract(reqs)
         routed = isinstance(lmap, MapShardRouter)
         for shard in range(len(lmap.shards)) if routed else [None]:
-            self._localize_group(map_id, reqs, self._binary(reqs[0]), shard=shard)
+            with on_device(_device(lmap)):
+                self._localize_group(map_id, reqs, self._binary(reqs[0]), shard=shard)
         for dev in set(lmap.devices) if routed else [lmap.X.device]:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -224,7 +226,8 @@ class LocalizationService:
             groups.setdefault((r.map_id, r.image.shape), []).append(r)
         for (map_id, _shape), g in groups.items():
             lmap, _intr, cfg = self.maps[map_id]
-            feats = extract_features(np.stack([r.image for r in g]), cfg, _device(lmap))
+            with on_device(_device(lmap)):
+                feats = extract_features(np.stack([r.image for r in g]), cfg, _device(lmap))
             for i, r in enumerate(g):
                 r.q_desc, r.q_uv, r.q_mask = feats.desc[i], feats.kp.uv[i], feats.kp.mask[i]
                 r.q_bits = feats.desc_bits[i]
@@ -248,7 +251,8 @@ class LocalizationService:
             groups.setdefault((r.map_id, r.q_desc.shape[0], self._binary(r)), []).append(r)
         for (map_id, _k, binary), reqs in groups.items():
             try:
-                out.extend(self._localize_group(map_id, reqs, binary))
+                with on_device(_device(self.maps[map_id][0])):
+                    out.extend(self._localize_group(map_id, reqs, binary))
             except Exception as e:  # reported to each request's caller
                 out.extend((r, e) for r in reqs)
         return out
@@ -312,6 +316,14 @@ def _device(lmap) -> torch.device:
     """Where a served map's queries are extracted and stacked: the map's
     device, or a router's first."""
     return lmap.devices[0] if isinstance(lmap, MapShardRouter) else lmap.X.device
+
+
+def on_device(dev: torch.device):
+    """The current card set to ``dev`` for the block (a no-op on the CPU).
+    The batch runs in an executor thread, whose current card is cuda:0
+    whatever card the map lives on, and the kernels launch on the current
+    card's streams."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def decode_image_payload(data: bytes, resize_to=(640, 480)) -> np.ndarray:

@@ -114,3 +114,22 @@ def multicard_rank(rank: int, n: int, dev, in_dir: str, phases: tuple) -> None:
     from sfmx_torch.dist import worlds
 
     worlds.world(rank, n, dev, in_dir, phases)
+
+
+def apart_rank(rank: int, n: int, dev, inp: str) -> None:
+    """A rank started on its own (``python -m sfmx_torch.dist.mesh`` over
+    ``tcp://``): the observation-sharded LM on the two-process bootstrap
+    problem (``b_*``) and ``ba_solve_blocked`` on the corridor (``c_*``)."""
+    from sfmx_torch.dist import block_ba, dist_ba
+
+    z = _load(inp)
+    names = ("intr", "k_idx", "R", "t", "X", "cam_id", "pt_id", "uv", "w", "fixed")
+    b = [torch.as_tensor(z[f"b_{k}"], device=dev) for k in names]
+    R, t, X, costs = dist_ba.make_ba_step(iters=2, cg_iters=5)(*b)
+    out = {"b_R": R, "b_t": t, "b_X": X, "b_costs": costs,
+           "world_size": torch.distributed.get_world_size(),
+           "group_rank": torch.distributed.get_rank()}
+    R, t, X, costs, stats = block_ba.ba_solve_blocked(*(z[f"c_{k}"] for k in names), device=dev,
+                                                      iters=6, cg_iters=20)
+    out.update(c_R=R, c_t=t, c_X=X, c_costs=costs, c_halo=stats["halo_fraction"])
+    _save(inp, rank, **out)
