@@ -6,8 +6,11 @@ the same walk and build as config 4-build's) on a corridor walk at one seed
 with ``recon.incremental.reconstruct`` wrapped: its inputs (keypoints, the
 track table, intrinsics, the per-pair verified counts, the ReconConfig) go to an
 ``.npz`` the CPU can feed to both packages' ``reconstruct``
-(``tests/f15_lockstep.py``'s loader reads it), and the build's line is
-printed with the card's name and power limit.
+(``tests/f17_builds.py`` reads it), and the build's line is
+printed with the card's name and power limit.  ``cli.pipeline.verify_matches``
+is wrapped too: the file also holds the keypoints' scales, the raw and the
+verified match masks (bits packed by ``np.packbits``) and the raw matches'
+indices where valid, which ``tests/f17_front_end.py compare`` reads.
 
 Run from the repository root on the card (~1 min for 1,024 frames):
     python3 chip_experiments/f17_inputs.py OUT.npz [frames [seed [scene [device]]]]
@@ -29,6 +32,7 @@ def main() -> int:
     import torch
 
     from sfmx_torch import run_configs as rc
+    from sfmx_torch.cli import pipeline
     from sfmx_torch.recon import incremental
 
     out = Path(sys.argv[1])
@@ -53,16 +57,31 @@ def main() -> int:
         saved.append(str(out))
         return orig(kp_uv, kp_mask, tt, intr, cam_k, cfg, callbacks, pair_counts, device=device)
 
+    orig_verify = pipeline.verify_matches
+    matches = {}
+
+    def verify_recording(feats, pairs, res, *args, **kwargs):
+        vres, cnt = orig_verify(feats, pairs, res, *args, **kwargs)
+        raw_valid = res.valid.cpu().numpy()
+        matches.update(kp_sigma=feats.kp.sigma.cpu().numpy(), raw_valid=np.packbits(raw_valid),
+                       raw_idx=res.idx.cpu().numpy()[raw_valid].astype(np.int16),
+                       ver_valid=np.packbits(vres.valid.cpu().numpy()),
+                       ver_cnt=cnt.cpu().numpy())
+        return vres, cnt
+
     incremental.reconstruct = recording
+    pipeline.verify_matches = verify_recording
     try:
         with tempfile.TemporaryDirectory(prefix="sfmx_f17_") as root:
             line = rc.config2_scale(device, root, frames=frames, scene=scene, seed=seed)
     finally:
         incremental.reconstruct = orig
+        pipeline.verify_matches = orig_verify
     poses, _render = rc.walk(frames, scene, 4)
     with np.load(out) as z:
         extra = dict(z)
-    np.savez_compressed(out, **extra, eyes=np.stack([e for (_, _, e) in poses]).astype(np.float32))
+    np.savez_compressed(out, **extra, **matches,
+                        eyes=np.stack([e for (_, _, e) in poses]).astype(np.float32))
     line.pop("map_path", None)
     print(json.dumps({"f17_inputs": saved, "card": smi, "torch": torch.__version__, **line}),
           flush=True)

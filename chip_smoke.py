@@ -3227,8 +3227,11 @@ def phase_determinism(cli: dict, dev, smi: str) -> dict:
     with the same seed, beside phase 25's: whether ``stats`` (timings aside)
     and every scene array and feature array are bit-identical, and, where
     not, which differ and by how much and whether the seed pair moved; both
-    builds held to the map-quality gates.  Returns the second build's
-    launches, counted from 0."""
+    builds held to the map-quality gates.  Then F18 on the card:
+    ``build_front_end`` of the same frames without a generator at
+    ``recon.seed`` 0 and 3 gives equal verified matches, counts and tracks
+    (verification draws from a generator seeded 0 whatever the seed).
+    Returns the second build's launches, counted from 0."""
     import torch
 
     from sfmx_torch.kernels import _build
@@ -3279,7 +3282,36 @@ def phase_determinism(cli: dict, dev, smi: str) -> dict:
     assert st2["n_registered"] == N_BUILD, st2["n_registered"]
     assert st2["final_med_px"] < REPROJ_GATE_PX and ate2 < ATE_GATE_M, (st2["final_med_px"], ate2)
     assert stats_equal and not diffs, "two builds with one seed differ"
+    front_end_seed_check(dev, smi)
     return launches
+
+
+def front_end_seed_check(dev, smi: str, seeds=(0, 3)) -> None:
+    """F18: the CLI's frames decoded as build-map decodes them, then
+    ``build_front_end`` without a generator at each ``recon.seed``: the
+    verified matches (indices where valid, masks), inlier counts and track
+    tables must be equal."""
+    import dataclasses
+
+    from sfmx_torch.cli import ingest
+    from sfmx_torch.cli.config import load_config
+    from sfmx_torch.cli.pipeline import build_front_end
+
+    cfg = load_config(None, CLI_GEOMETRY()[1::2])
+    ws = ingest.load_directory(CLI_ROOT / "walk", resize_to=cfg.resize_to,
+                               focal_factor=cfg.focal_factor)
+    runs = []
+    for seed in seeds:
+        c = dataclasses.replace(cfg, recon=dataclasses.replace(cfg.recon, seed=seed))
+        _f, _p, res, cnt, tt = build_front_end(ws.images, ws.intrinsics, ws.cam_k, c, dev)
+        valid = res.valid.cpu().numpy()
+        runs.append((res.idx.cpu().numpy()[valid], valid, cnt.cpu().numpy(), *tt[:3]))
+    equal = all(np.array_equal(x, y) for x, y in zip(*runs))
+    log(f"[determinism] F18: build_front_end of the {len(ws.images)} frames at recon.seed "
+        f"{seeds[0]} and {seeds[1]} without a generator: {int(runs[0][1].sum())} and "
+        f"{int(runs[1][1].sum())} verified matches, {runs[0][3].size} and {runs[1][3].size} "
+        f"track observations; verified matches, counts and tracks equal {equal}; on {smi}")
+    assert equal, "verification moved with recon.seed (F18)"
 
 
 # ---------------------------------------------------------------------------

@@ -308,9 +308,10 @@ def build_front_end(images, intrinsics, cam_k, cfg: PipelineConfig, device, work
 
     ``images`` (N,H,W) in [0,1], or None with precomputed ``feats`` (then
     ``stage_seed`` keys the cache).  ``generator`` draws the RANSAC noise
-    on the features' device; None makes one there seeded from
-    ``cfg.recon.seed``, so a build repeats bit for bit as the reference's
-    (its verification keys are fixed seeds).  Returns
+    on the features' device; None makes one there seeded 0, whatever
+    ``cfg.recon.seed`` is, so a build repeats bit for bit and its verified
+    matches do not move with the reconstruction's seed, as the reference's
+    (its ``verify_matches`` keys start at seed 0).  Returns
     (feats, pairs (Np,2), verified MatchResult, inlier counts or None,
     TrackTable); every stage writes one LOGGER record.
     """
@@ -329,7 +330,7 @@ def build_front_end(images, intrinsics, cam_k, cfg: PipelineConfig, device, work
         feats = cache.get_or_run("extract", _stage_key("extract", images, cfg.features),
                                  _extract)
     if generator is None:
-        generator = torch.Generator(device=feats.desc.device).manual_seed(cfg.recon.seed)
+        generator = torch.Generator(device=feats.desc.device).manual_seed(0)
     key_basis = images if images is not None else stage_seed
     with LOGGER.scope("pairs", mode=cfg.match.pair_mode) as out:
         if cfg.match.pair_mode == "retrieval":
@@ -367,7 +368,7 @@ def build_map(images, intrinsics, cam_k, cfg: PipelineConfig, device, workdir=No
     """Full map build on ``device``; returns (scene, feats, track_table, stats).
 
     The front end is ``build_front_end`` (same arguments; without a
-    ``generator`` verification draws from one seeded ``cfg.recon.seed``);
+    ``generator`` verification draws from one seeded 0);
     the ``reconstruct`` stage then runs incremental SfM and bundle adjustment
     over its tracks, seeded from ``cfg.recon.seed``.  Direct
     (geometry-verified) per-pair match counts drive the initial-pair

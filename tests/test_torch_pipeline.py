@@ -460,7 +460,7 @@ def _room_build_inputs(frames=8, width=160, height=120):
 
 def test_build_map_without_generator_repeats():
     """F14: ``build_map`` with no generator draws verification's noise from
-    one seeded ``cfg.recon.seed``, so two builds in one process are
+    one seeded 0 (F18), so two builds in one process are
     bit-equal (every scene and feature array, the track table, the stats
     but their timings), as the reference's builds repeat (fixed keys).
     The case is the one F14 was found on: 8 rendered room frames at
