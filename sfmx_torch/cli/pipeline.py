@@ -47,9 +47,14 @@ def _extract_raw(images, cfg: PipelineConfig, device) -> features.Features:
     )
 
 
-# The reference's extract_features adds only a log scope around _extract_raw
-# (the map-build front end logs its extraction itself: build_front_end).
-extract_features = _extract_raw
+def extract_features(images, cfg: PipelineConfig, device) -> features.Features:
+    """``_extract_raw`` under the reference's ``extract`` record (image
+    count, extractor, keypoints kept)."""
+    with LOGGER.scope("extract", n_images=len(images),
+                      extractor=cfg.features.extractor) as out:
+        feats = _extract_raw(images, cfg, device)
+        out["keypoints"] = int(feats.kp.mask.sum())
+    return feats
 
 
 def extract_features_streaming(paths, cfg: PipelineConfig, device, *, chunk: int = 16,
@@ -320,15 +325,8 @@ def build_front_end(images, intrinsics, cam_k, cfg: PipelineConfig, device, work
     n_images = len(cam_k)
     cache = StageCache(workdir, device)
     if feats is None:
-        def _extract():
-            with LOGGER.scope("extract", n_images=len(images),
-                              extractor=cfg.features.extractor) as out:
-                f = extract_features(images, cfg, device)
-                out["keypoints"] = int(f.kp.mask.sum())
-            return f
-
         feats = cache.get_or_run("extract", _stage_key("extract", images, cfg.features),
-                                 _extract)
+                                 lambda: extract_features(images, cfg, device))
     if generator is None:
         generator = torch.Generator(device=feats.desc.device).manual_seed(0)
     key_basis = images if images is not None else stage_seed

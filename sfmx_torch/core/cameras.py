@@ -10,6 +10,11 @@ FX, FY, CX, CY, K1, K2, K3 = range(7)
 N_INTR = 7
 
 
+def make_intrinsics(fx, fy, cx, cy, k1=0.0, k2=0.0, k3=0.0, *, device) -> torch.Tensor:
+    """One intrinsics record (7,) float32 on ``device``."""
+    return torch.tensor([fx, fy, cx, cy, k1, k2, k3], dtype=torch.float32, device=device)
+
+
 def distort_radial(k: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
     """Apply radial distortion to normalized coords xn (...,2)."""
     r2 = torch.sum(xn * xn, dim=-1, keepdim=True)
@@ -49,6 +54,23 @@ def pixel_to_normalized(k: torch.Tensor, uv: torch.Tensor,
     if undistort:
         return undistort_radial(k, xd)
     return xd
+
+
+def bearing(k: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Pixel coords (...,2) -> unit bearing vectors in the camera frame (...,3)."""
+    xn = pixel_to_normalized(k, uv)
+    v = torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1)
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+
+def K_matrix(k: torch.Tensor) -> torch.Tensor:
+    """3x3 calibration matrices (...,3,3) of records k (...,7) (distortion ignored)."""
+    one, zero = torch.ones_like(k[..., FX]), torch.zeros_like(k[..., FX])
+    return torch.stack([
+        torch.stack([k[..., FX], zero, k[..., CX]], dim=-1),
+        torch.stack([zero, k[..., FY], k[..., CY]], dim=-1),
+        torch.stack([zero, zero, one], dim=-1),
+    ], dim=-2)
 
 
 def reprojection_residual(k, R, t, X, uv_obs):

@@ -39,9 +39,45 @@ def masked_argmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1):
     return val, idx, val > NEG_INF / 2
 
 
+def masked_argmin(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1):
+    v, i, ok = masked_argmax(-scores, mask, dim=dim)
+    return -v, i, ok
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None):
     m = mask.to(x.dtype)
     if dim is None:
         return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
     return torch.sum(x * m, dim=dim) / torch.clamp(torch.sum(m, dim=dim), min=1.0)
 
+
+def pad_axis_to(x: torch.Tensor, size: int, dim: int = 0, fill=0) -> torch.Tensor:
+    """Pad (with ``fill``) or truncate one dimension to exactly ``size``."""
+    n = x.shape[dim]
+    if n >= size:
+        return x.narrow(dim, 0, size)
+    shape = list(x.shape)
+    shape[dim] = size - n
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=dim)
+
+
+def first_free_slot(alive: torch.Tensor) -> torch.Tensor:
+    """Index of the first False in a 1-D alive mask: the argmin of the mask,
+    as the reference takes it, so a full mask gives 0, not its capacity."""
+    return torch.argmin(alive.to(torch.int32))
+
+
+def count(mask: torch.Tensor) -> torch.Tensor:
+    return torch.sum(mask.to(torch.int32), dtype=torch.int32)
+
+
+def scatter_set(arr: torch.Tensor, idx, value, pred=True) -> torch.Tensor:
+    """A copy of ``arr`` with ``arr[idx] = value`` where the boolean tensor
+    (or bool) ``pred`` holds and the old entries elsewhere: a ``torch.where``
+    on the device, no host sync."""
+    old = arr[idx]
+    pred = torch.as_tensor(pred, device=arr.device)
+    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    out = arr.clone()
+    out[idx] = torch.where(pred, value, old)
+    return out

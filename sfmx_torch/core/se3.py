@@ -24,6 +24,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) skew -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula, Taylor-safe near theta=0. (...,3) -> (...,3,3)."""
     theta2 = torch.sum(w * w, dim=-1)
@@ -37,6 +42,91 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Matrix log of rotations (...,3,3) -> (...,3), safe near identity and
+    near pi: the quaternion route, not the trace/arccos formula, which loses
+    precision near pi in f32."""
+    q = rot_to_quat(R)                                    # (w, x, y, z), w >= 0
+    qw, qv = q[..., 0], q[..., 1:]
+    nv = torch.linalg.vector_norm(qv, dim=-1)
+    theta = 2.0 * torch.atan2(nv, qw)                     # axis = qv / |qv|
+    scale = torch.where(nv < 1e-7, 2.0 / torch.clamp(qw, min=1e-7),
+                        theta / torch.clamp(nv, min=1e-30))
+    return scale[..., None] * qv
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (...,3,3) -> unit quaternions (...,4) (w,x,y,z)
+    with w >= 0.  Branchless Shepperd's method: all four constructions,
+    the one keyed on the largest of (trace, R00, R11, R22) kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    # four candidates, each scaled by 4 * component^2 (>= 0 before the clip)
+    qw2 = torch.clamp(1.0 + tr, min=0.0)
+    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    sw = torch.sqrt(qw2 + _EPS * _EPS) * 2.0
+    cw = torch.stack([0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw], dim=-1)
+    sx = torch.sqrt(qx2 + _EPS * _EPS) * 2.0
+    cx = torch.stack([(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx], dim=-1)
+    sy = torch.sqrt(qy2 + _EPS * _EPS) * 2.0
+    cy = torch.stack([(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy], dim=-1)
+    sz = torch.sqrt(qz2 + _EPS * _EPS) * 2.0
+    cz = torch.stack([(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz], dim=-1)
+    cands = torch.stack([cw, cx, cy, cz], dim=-2)                          # (...,4,4)
+    pick = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)  # first of ties
+    q = torch.gather(cands, -2, pick[..., None, None].expand(*pick.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.sign(torch.where(q[..., :1] == 0.0, torch.ones_like(q[..., :1]), q[..., :1]))
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (...,4) (w,x,y,z) -> rotation matrices (...,3,3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """se(3) exp: xi (...,6) = (w, v) -> (R (...,3,3), t = V(w) v (...,3))."""
+    w, v = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    use_taylor = theta2 < 1e-8
+    b = torch.where(use_taylor, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / (theta2 + _EPS * _EPS))
+    c = torch.where(use_taylor, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta + _EPS * _EPS))
+    W = hat(w)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    V = eye + b[..., None, None] * W + c[..., None, None] * (W @ W)
+    return so3_exp(w), (V @ v[..., None])[..., 0]
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Inverse of se3_exp: (R (...,3,3), t (...,3)) -> xi (...,6) = (w, v)."""
+    w = so3_log(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    use_taylor = theta2 < 1e-8
+    W = hat(w)
+    # V^-1 = I - W/2 + (1/th^2)(1 - th sin / (2 (1 - cos))) W^2
+    half = 0.5 * theta
+    cot_term = torch.where(
+        use_taylor, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=1e-20))
+        / (theta2 + _EPS * _EPS))
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    Vinv = eye - 0.5 * W + cot_term[..., None, None] * (W @ W)
+    return torch.cat([w, (Vinv @ t[..., None])[..., 0]], dim=-1)
+
+
 def perturb(R: torch.Tensor, t: torch.Tensor, delta: torch.Tensor):
     """Left-multiplicative local update: delta = (dw[3], dt[3])."""
     dR = so3_exp(delta[..., :3])
@@ -46,6 +136,9 @@ def perturb(R: torch.Tensor, t: torch.Tensor, delta: torch.Tensor):
 # Every function here takes leading batch dimensions, so the reference's
 # vmapped forms are the same functions.
 so3_exp_b = so3_exp
+so3_log_b = so3_log
+quat_to_rot_b = quat_to_rot
+rot_to_quat_b = rot_to_quat
 perturb_b = perturb
 
 
@@ -67,6 +160,14 @@ def apply(R, t, X):
 def det3(M: torch.Tensor) -> torch.Tensor:
     """Closed-form determinant of (...,3,3)."""
     return torch.sum(M[..., :, 0] * torch.linalg.cross(M[..., :, 1], M[..., :, 2]), dim=-1)
+
+
+def project_to_so3(M: torch.Tensor) -> torch.Tensor:
+    """Nearest rotations to (...,3,3) matrices (SVD orthogonalization, det +1)."""
+    U, _, Vt = torch.linalg.svd(M)
+    d = det3(U @ Vt)
+    S = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+    return U @ S @ Vt
 
 
 def _inv3(M: torch.Tensor) -> torch.Tensor:

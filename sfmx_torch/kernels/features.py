@@ -30,11 +30,11 @@ from ..core.masking import topk_lowest_index
 # ---------------------------------------------------------------------------
 
 
-def _conv2d(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _conv2d(x: torch.Tensor, k: torch.Tensor, dilation: int = 1) -> torch.Tensor:
     """Zero-padded 'same' 2D correlation of (B,H,W) with kernel (kh,kw)."""
     kh, kw = k.shape
-    return F.conv2d(x[:, None], k[None, None],
-                    padding=((kh - 1) // 2, (kw - 1) // 2))[:, 0]
+    return F.conv2d(x[:, None], k[None, None], dilation=dilation,
+                    padding=((kh - 1) * dilation // 2, (kw - 1) * dilation // 2))[:, 0]
 
 
 def gaussian_kernel1d(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -50,6 +50,16 @@ def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
     k = torch.as_tensor(gaussian_kernel1d(sigma), device=x.device)
     x = _conv2d(x, k[None, :])
     return _conv2d(x, k[:, None])
+
+
+_SCHARR_X = ((-3.0, 0.0, 3.0), (-10.0, 0.0, 10.0), (-3.0, 0.0, 3.0))
+
+
+def scharr(x: torch.Tensor, dilation: int = 1):
+    """Scharr derivatives (3x3/32 stencil) of (B,H,W) with zero padding;
+    ``scharr_roll`` is the periodic form that K1 and K2 implement."""
+    kx = torch.tensor(_SCHARR_X, dtype=x.dtype, device=x.device) / 32.0
+    return _conv2d(x, kx, dilation), _conv2d(x, kx.T.contiguous(), dilation)
 
 
 def _sh(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

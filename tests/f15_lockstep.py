@@ -109,7 +109,8 @@ def centers(R, t):
     return -np.einsum("cji,cj->ci", R, t)
 
 
-def run_reference(d: dict, seed: int, rounds_only: int | None = None) -> list:
+def run_reference(d: dict, seed: int, rounds_only: int | None = None,
+                  cfg_kw: dict | None = None) -> list:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -118,13 +119,14 @@ def run_reference(d: dict, seed: int, rounds_only: int | None = None) -> list:
     from sfmx.recon.tracks import TrackTable
     from sfmx.solvers import lm
 
-    return _run(inc, lm, ReconConfig(seed=seed), TrackTable, d, kw={}, rounds_only=rounds_only)
+    return _run(inc, lm, ReconConfig(seed=seed, **(cfg_kw or {})), TrackTable, d, kw={},
+                rounds_only=rounds_only)
 
 
 def run_port(d: dict, seed: int, draws: "JaxDraws | None",
-             rounds_only: int | None = None) -> list:
+             rounds_only: int | None = None, cfg_kw: dict | None = None) -> list:
     """The port's ``reconstruct``: on the reference's draws (``draws``) or,
-    with None, on its own."""
+    with None, on its own; ``cfg_kw`` overrides ``ReconConfig`` fields."""
     import torch
 
     import sfmx_torch.recon.incremental as inc
@@ -132,9 +134,9 @@ def run_port(d: dict, seed: int, draws: "JaxDraws | None",
     from sfmx_torch.recon.tracks import TrackTable
     from sfmx_torch.solvers import lm
 
+    cfg = ReconConfig(seed=seed, **(cfg_kw or {}))
     if draws is None:
-        return _run(inc, lm, ReconConfig(seed=seed), TrackTable, d, kw={"device": "cpu"},
-                    rounds_only=rounds_only)
+        return _run(inc, lm, cfg, TrackTable, d, kw={"device": "cpu"}, rounds_only=rounds_only)
     inc._RESECT_CHUNK = 1 << 30            # one resection call a round, as the reference's
 
     def gumbel_noise(shape, *, device, generator=None):
@@ -159,8 +161,7 @@ def run_port(d: dict, seed: int, draws: "JaxDraws | None",
     inc.ransac.gumbel_noise = gumbel_noise
     inc.register_points_verified = register_points_verified
     try:
-        return _run(inc, lm, ReconConfig(seed=seed), TrackTable, d, kw={"device": "cpu"},
-                    rounds_only=rounds_only)
+        return _run(inc, lm, cfg, TrackTable, d, kw={"device": "cpu"}, rounds_only=rounds_only)
     finally:
         inc._RESECT_CHUNK, inc.ransac.gumbel_noise, inc.register_points_verified = saved
 
@@ -183,7 +184,10 @@ def _run(inc, lm, cfg, TrackTable, d, kw, rounds_only: int | None = None) -> lis
         return out
 
     def callback(registered, X_alive):
-        rounds.append({"registered": registered, "alive": X_alive,
+        # the build's stats, read from the incremental loop that calls back
+        # (both packages' loops hold them): the seed pairs so far
+        seeds = list(sys._getframe(1).f_locals.get("stats", {}).get("init_pairs", []))
+        rounds.append({"registered": registered, "alive": X_alive, "init_pairs": seeds,
                        "R": last["R"].copy(), "t": last["t"].copy(), "X": last["X"].copy()})
         if rounds_only is not None and len(rounds) >= rounds_only:
             raise _Stop
@@ -201,7 +205,8 @@ def _run(inc, lm, cfg, TrackTable, d, kw, rounds_only: int | None = None) -> lis
     final = {"registered": np.asarray(scene.cam_alive).copy(),
              "alive": np.asarray(scene.X_alive).copy(), "R": np.array(scene.cam_R),
              "t": np.array(scene.cam_t), "X": np.array(scene.X), "final": True,
-             "init_pair": stats.get("init_pair"), "components": stats.get("components")}
+             "init_pair": stats.get("init_pair"), "components": stats.get("components"),
+             "stats": stats}
     return rounds + [final]
 
 

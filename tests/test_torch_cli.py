@@ -253,3 +253,32 @@ def test_cli_evaluate_and_georeference_match_reference(image_dirs, built, tmp_pa
     extent = float(np.abs(b["X"][b["X_alive"]]).max())
     for k in ("cam_R", "cam_t", "X"):
         np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-5 * max(extent, 1.0), err_msg=k)
+
+
+def _extract_records(err: str) -> list[dict]:
+    recs = [json.loads(line) for line in err.splitlines() if line.startswith("{")]
+    return [r for r in recs if r.get("stage") == "extract"]
+
+
+def test_localize_logs_the_reference_extract_record(image_dirs, built, capsys):
+    """One ``localize`` call of each package on one store writes one
+    ``extract`` record, with the same keys and the same image count and
+    extractor (the port's localize and serve extract through the same
+    ``extract_features``)."""
+    from sfmx.cli import main as jmain
+
+    _, d_q, _ = image_dirs
+    out = built[0]
+    main(["localize", str(out), str(d_q), *MAP_ARGS])
+    got = _extract_records(capsys.readouterr().err)
+    overrides = [MAP_ARGS[i + 1] for i, a in enumerate(MAP_ARGS) if a == "-D"]
+    jmain.cmd_localize(argparse.Namespace(
+        map=str(out), images=str(d_q), video=False, every_n=10, sequential=False, radius=3.0,
+        config=None, override=overrides))
+    want = _extract_records(capsys.readouterr().err)
+    assert len(got) == 1 and len(want) == 1, (got, want)
+    assert set(got[0]) == set(want[0])
+    for k in ("n_images", "extractor"):
+        assert got[0][k] == want[0][k], k
+    assert got[0]["n_images"] == 2
+    assert got[0]["keypoints"] > 0
