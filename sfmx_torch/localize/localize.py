@@ -26,6 +26,7 @@ from ..core.masking import NEG_INF, topk_lowest_index
 from ..kernels import matching
 from ..kernels.match import match_float_streaming
 from ..solvers import p3p, pnp, ransac
+from ..utils.logging import span
 from . import retrieve
 
 
@@ -191,9 +192,6 @@ def _pnp_from_matches(xn, X3, corr_ok, intr, gumbel, *, px_thresh: float,
     (B,k_hyp,K).  pnp_solver: "dlt6" (6-point DLT) or "p3p" (Grunert
     3-point, 4 candidates per sample, which join the hypothesis pool).
     """
-    f_mean = 0.5 * (intr[:, 0] + intr[:, 1])
-    thresh_n = (px_thresh / f_mean) ** 2                           # (B,)
-
     def residual_fn(model, xn_d, X_d):
         R, t = model
         r = pnp.pnp_residual(R, t, xn_d, X_d)
@@ -205,18 +203,23 @@ def _pnp_from_matches(xn, X3, corr_ok, intr, gumbel, *, px_thresh: float,
         solver, sample_size, n_cand = pnp.dlt_pnp_minimal, pnp.MIN_SAMPLE, 1
     else:
         raise ValueError(f"pnp_solver must be 'dlt6' or 'p3p', got {pnp_solver!r}")
-    (R, t), inliers, _ = ransac.ransac(
-        gumbel, solver, residual_fn, (xn, X3), corr_ok,
-        sample_size=sample_size, inlier_threshold=thresh_n, n_candidates=n_cand)
-    R, t = pnp.refine_pnp_gn(R, t, xn, X3, inliers)
-    r = residual_fn((R, t), xn, X3)
-    inliers = (r < thresh_n[:, None]) & corr_ok
-    n_inl = torch.sum(inliers, dim=-1, dtype=torch.int32)
-    n_corr = torch.clamp(torch.sum(corr_ok, dim=-1, dtype=torch.int32), min=1)
-    conf = torch.where(n_inl >= min_inliers,
-                       torch.clamp(n_inl.to(torch.float32) / n_corr.to(torch.float32), 0.0, 1.0),
-                       torch.zeros_like(n_inl, dtype=torch.float32))
-    center = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    with span("localize.ransac"):
+        f_mean = 0.5 * (intr[:, 0] + intr[:, 1])
+        thresh_n = (px_thresh / f_mean) ** 2                       # (B,)
+        (R, t), inliers, _ = ransac.ransac(
+            gumbel, solver, residual_fn, (xn, X3), corr_ok,
+            sample_size=sample_size, inlier_threshold=thresh_n, n_candidates=n_cand)
+    with span("localize.refine"):
+        R, t = pnp.refine_pnp_gn(R, t, xn, X3, inliers)
+        r = residual_fn((R, t), xn, X3)
+        inliers = (r < thresh_n[:, None]) & corr_ok
+        n_inl = torch.sum(inliers, dim=-1, dtype=torch.int32)
+        n_corr = torch.clamp(torch.sum(corr_ok, dim=-1, dtype=torch.int32), min=1)
+        conf = torch.where(n_inl >= min_inliers,
+                           torch.clamp(n_inl.to(torch.float32) / n_corr.to(torch.float32),
+                                       0.0, 1.0),
+                           torch.zeros_like(n_inl, dtype=torch.float32))
+        center = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
     return LocalizeResult(R=R, t=t, n_inliers=n_inl, confidence=conf, center=center)
 
 
@@ -298,7 +301,8 @@ def localize_batch(lmap: LocalizationMap, q_desc: torch.Tensor, q_uv: torch.Tens
     intr_b = _per_query(intr, B)
     xn = cameras.pixel_to_normalized(intr_b[:, None, :], q_uv)     # (B,K,2)
     X3 = torch.gather(cX, 1, best_m[..., None].expand(B, K, 3))    # (B,K,3)
-    gumbel = _noise(gumbel, generator, B, k_hypotheses, K, dev)
+    with span("localize.ransac"):
+        gumbel = _noise(gumbel, generator, B, k_hypotheses, K, dev)
     return _pnp_from_matches(xn, X3, corr_ok, intr_b, gumbel, px_thresh=px_thresh,
                              min_inliers=min_inliers, pnp_solver=pnp_solver)
 
@@ -335,18 +339,20 @@ def localize_batch_streaming(lmap: LocalizationMap, q_desc: torch.Tensor,
     outside the radius are zeroed before matching.
     """
     B, K, D = q_desc.shape
-    lm_mask = lmap.lm_alive
-    if prior_center is not None:
-        d2 = torch.sum((lmap.X - prior_center) ** 2, dim=-1)
-        lm_mask = lm_mask & (d2 <= prior_radius * prior_radius)
-    m = match_float_streaming(q_desc.reshape(B * K, D), lmap.lm_desc,
-                              q_mask.reshape(B * K), lm_mask, ratio=ratio, tile_b=tile_b)
-    idx = m.idx.reshape(B, K)
-    corr_ok = (m.valid & (m.score > sim_thresh)).reshape(B, K)
-    X3 = lmap.X[idx]                                               # (B,K,3)
-    intr_b = _per_query(intr, B)
-    xn = cameras.pixel_to_normalized(intr_b[:, None, :], q_uv)
-    gumbel = _noise(gumbel, generator, B, k_hypotheses, K, q_desc.device)
+    with span("localize.match"):
+        lm_mask = lmap.lm_alive
+        if prior_center is not None:
+            d2 = torch.sum((lmap.X - prior_center) ** 2, dim=-1)
+            lm_mask = lm_mask & (d2 <= prior_radius * prior_radius)
+        m = match_float_streaming(q_desc.reshape(B * K, D), lmap.lm_desc,
+                                  q_mask.reshape(B * K), lm_mask, ratio=ratio, tile_b=tile_b)
+        idx = m.idx.reshape(B, K)
+        corr_ok = (m.valid & (m.score > sim_thresh)).reshape(B, K)
+        X3 = lmap.X[idx]                                           # (B,K,3)
+        intr_b = _per_query(intr, B)
+        xn = cameras.pixel_to_normalized(intr_b[:, None, :], q_uv)
+    with span("localize.ransac"):
+        gumbel = _noise(gumbel, generator, B, k_hypotheses, K, q_desc.device)
     return _pnp_from_matches(xn, X3, corr_ok, intr_b, gumbel, px_thresh=px_thresh,
                              min_inliers=min_inliers, pnp_solver=pnp_solver)
 

@@ -13,7 +13,11 @@ through ``localize_batch_streaming`` (kernel K4 against the whole pool).  A
 map loaded with ``shards > 1`` is split across devices and each query is
 routed by retrieval to its shard (``serve/router.py``).
 Batches hold exactly the requests that arrived: PyTorch runs eagerly, so
-there is no compiled-shape set to bound by padding.
+there is no compiled-shape set to bound by padding.  Each stage of a batch
+is a profiler span (``utils.logging.span``: ``serve.batch`` > ``serve.extract``
+> ``extract``, and ``serve.localize`` > ``serve.stack``, ``localize.match``,
+``localize.ransac``, ``localize.refine``, ``serve.readback``,
+``serve.respond``); serving writes no stage record.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from ..localize.fusion import BeaconPrior, fuse
 from ..localize.localize import (LocalizationMap, LocalizeResult, localize_batch,
                                  localize_batch_streaming, use_streaming)
+from ..utils.logging import span
 from .router import MapShardRouter, split_localization_map
 
 
@@ -216,100 +221,110 @@ class LocalizationService:
                 and getattr(self.maps[r.map_id][0], "lm_bits", None) is not None)
 
     def _extract(self, reqs: list[_Request]):
-        """Server-side extraction for image requests: one
-        ``extract_features`` call per (map, image shape) group; the features
-        stay on the map's device."""
-        from ..cli.pipeline import extract_features
+        """Server-side extraction for image requests: one extraction
+        (``_extract_raw``, under the span ``extract``) per (map, image
+        shape) group; the features stay on the map's device and nothing is
+        read back, so the batch goes on to localization while the device
+        extracts."""
+        from ..cli.pipeline import _extract_raw
 
-        groups: dict[tuple, list[_Request]] = {}
-        for r in reqs:
-            groups.setdefault((r.map_id, r.image.shape), []).append(r)
-        for (map_id, _shape), g in groups.items():
-            lmap, _intr, cfg = self.maps[map_id]
-            with on_device(_device(lmap)):
-                feats = extract_features(np.stack([r.image for r in g]), cfg, _device(lmap))
-            for i, r in enumerate(g):
-                r.q_desc, r.q_uv, r.q_mask = feats.desc[i], feats.kp.uv[i], feats.kp.mask[i]
-                r.q_bits = feats.desc_bits[i]
+        with span("serve.extract"):
+            groups: dict[tuple, list[_Request]] = {}
+            for r in reqs:
+                groups.setdefault((r.map_id, r.image.shape), []).append(r)
+            for (map_id, _shape), g in groups.items():
+                lmap, _intr, cfg = self.maps[map_id]
+                images = np.stack([r.image for r in g])
+                with on_device(_device(lmap)), span("extract"):
+                    feats = _extract_raw(images, cfg, _device(lmap))
+                for i, r in enumerate(g):
+                    r.q_desc, r.q_uv, r.q_mask = feats.desc[i], feats.kp.uv[i], feats.kp.mask[i]
+                    r.q_bits = feats.desc_bits[i]
 
     def _run_batch(self, batch: list[_Request]):
-        out: list[tuple[_Request, dict | Exception]] = []
-        img_reqs = [r for r in batch if r.image is not None]
-        if img_reqs:
-            try:
-                self._extract(img_reqs)
-            except Exception as e:  # reported to each request's caller
-                out.extend((r, e) for r in img_reqs)
-                batch = [r for r in batch if r.image is None]
+        with span("serve.batch"):
+            out: list[tuple[_Request, dict | Exception]] = []
+            img_reqs = [r for r in batch if r.image is not None]
+            if img_reqs:
+                try:
+                    self._extract(img_reqs)
+                except Exception as e:  # reported to each request's caller
+                    out.extend((r, e) for r in img_reqs)
+                    batch = [r for r in batch if r.image is None]
 
-        # group by (map id, K, binary): one batched call per group
-        groups: dict[tuple, list[_Request]] = {}
-        for r in batch:
-            if r.q_desc is None:
-                out.append((r, ValueError("no features or image in request")))
-                continue
-            groups.setdefault((r.map_id, r.q_desc.shape[0], self._binary(r)), []).append(r)
-        for (map_id, _k, binary), reqs in groups.items():
-            try:
-                with on_device(_device(self.maps[map_id][0])):
-                    out.extend(self._localize_group(map_id, reqs, binary))
-            except Exception as e:  # reported to each request's caller
-                out.extend((r, e) for r in reqs)
-        return out
+            # group by (map id, K, binary): one batched call per group
+            groups: dict[tuple, list[_Request]] = {}
+            for r in batch:
+                if r.q_desc is None:
+                    out.append((r, ValueError("no features or image in request")))
+                    continue
+                groups.setdefault((r.map_id, r.q_desc.shape[0], self._binary(r)), []).append(r)
+            for (map_id, _k, binary), reqs in groups.items():
+                try:
+                    with on_device(_device(self.maps[map_id][0])):
+                        out.extend(self._localize_group(map_id, reqs, binary))
+                except Exception as e:  # reported to each request's caller
+                    out.extend((r, e) for r in reqs)
+            return out
 
     def _localize_group(self, map_id: str, reqs: list[_Request], binary: bool,
                         shard: int | None = None):
-        lmap, intr0, cfg = self.maps[map_id]
-        lc = cfg.localize
-        dev = _device(lmap)
+        with span("serve.localize"):
+            lmap, intr0, cfg = self.maps[map_id]
+            lc = cfg.localize
+            dev = _device(lmap)
 
-        def stack(name, dtype=None):
-            return torch.stack([torch.as_tensor(getattr(r, name), dtype=dtype, device=dev)
-                                for r in reqs])
+            def stack(name, dtype=None):
+                return torch.stack([torch.as_tensor(getattr(r, name), dtype=dtype, device=dev)
+                                    for r in reqs])
 
-        q_desc, q_uv, q_mask = stack("q_desc"), stack("q_uv"), stack("q_mask", torch.bool)
-        intr_b = torch.stack([intr0 if r.intr is None else
-                              torch.as_tensor(np.asarray(r.intr, np.float32), device=dev)
-                              for r in reqs])
-        kw = dict(top_k_kf=lc.top_k_kf, m_cap=lc.m_cap, k_hypotheses=lc.k_hypotheses,
-                  px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers,
-                  ham_thresh=lc.ham_thresh, pnp_solver=lc.pnp_solver)
-        if isinstance(lmap, MapShardRouter):
-            # multi-device map: each query to its shard's device, one
-            # localize_batch call per shard group, every kwarg forwarded
-            res, _ = lmap.localize_batch(q_desc, q_uv, q_mask, intr_b, generators=self._gens,
-                                         shard=shard, **kw)
-        elif binary:
-            q_bits = torch.stack([torch.as_tensor(np.asarray(r.q_bits).view(np.int32))
-                                  if isinstance(r.q_bits, np.ndarray) else r.q_bits
-                                  for r in reqs]).to(dev)
-            res = localize_batch(lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
-                                 q_bits=q_bits, **kw)
-        elif use_streaming(lc, lmap, binary):
-            # map-scale path: the whole batch against every landmark in ONE
-            # K4 call; like the reference, the server passes no ratio
-            res = localize_batch_streaming(
-                lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
-                k_hypotheses=lc.k_hypotheses, px_thresh=lc.px_thresh,
-                sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers,
-                pnp_solver=lc.pnp_solver)
-        else:
-            res = localize_batch(lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
-                                 **kw)
-        res = LocalizeResult(*(x.cpu() for x in res))
-        out = []
-        for i, r in enumerate(reqs):
-            one = LocalizeResult(*(x[i] for x in res))
-            fused = fuse(one, r.prior)
-            out.append((r, {
-                "t": one.t.tolist(),
-                "R": one.R.tolist(),
-                "center": fused.center.tolist(),
-                "n_inliers": int(one.n_inliers),
-                "confidence": float(fused.confidence),
-                "source": int(fused.source),
-            }))
-        return out
+            with span("serve.stack"):
+                q_desc, q_uv, q_mask = stack("q_desc"), stack("q_uv"), stack("q_mask", torch.bool)
+                intr_b = torch.stack([intr0 if r.intr is None else
+                                      torch.as_tensor(np.asarray(r.intr, np.float32), device=dev)
+                                      for r in reqs])
+                q_bits = torch.stack([torch.as_tensor(np.asarray(r.q_bits).view(np.int32))
+                                      if isinstance(r.q_bits, np.ndarray) else r.q_bits
+                                      for r in reqs]).to(dev) if binary else None
+            kw = dict(top_k_kf=lc.top_k_kf, m_cap=lc.m_cap, k_hypotheses=lc.k_hypotheses,
+                      px_thresh=lc.px_thresh, sim_thresh=lc.sim_thresh,
+                      min_inliers=lc.min_inliers, ham_thresh=lc.ham_thresh,
+                      pnp_solver=lc.pnp_solver)
+            if isinstance(lmap, MapShardRouter):
+                # multi-device map: each query to its shard's device, one
+                # localize_batch call per shard group, every kwarg forwarded
+                res, _ = lmap.localize_batch(q_desc, q_uv, q_mask, intr_b,
+                                             generators=self._gens, shard=shard, **kw)
+            elif binary:
+                res = localize_batch(lmap, q_desc, q_uv, q_mask, intr_b,
+                                     generator=self._gens[dev], q_bits=q_bits, **kw)
+            elif use_streaming(lc, lmap, binary):
+                # map-scale path: the whole batch against every landmark in ONE
+                # K4 call; like the reference, the server passes no ratio
+                res = localize_batch_streaming(
+                    lmap, q_desc, q_uv, q_mask, intr_b, generator=self._gens[dev],
+                    k_hypotheses=lc.k_hypotheses, px_thresh=lc.px_thresh,
+                    sim_thresh=lc.sim_thresh, min_inliers=lc.min_inliers,
+                    pnp_solver=lc.pnp_solver)
+            else:
+                res = localize_batch(lmap, q_desc, q_uv, q_mask, intr_b,
+                                     generator=self._gens[dev], **kw)
+            with span("serve.readback"):
+                res = LocalizeResult(*(x.cpu() for x in res))
+            with span("serve.respond"):
+                out = []
+                for i, r in enumerate(reqs):
+                    one = LocalizeResult(*(x[i] for x in res))
+                    fused = fuse(one, r.prior)
+                    out.append((r, {
+                        "t": one.t.tolist(),
+                        "R": one.R.tolist(),
+                        "center": fused.center.tolist(),
+                        "n_inliers": int(one.n_inliers),
+                        "confidence": float(fused.confidence),
+                        "source": int(fused.source),
+                    }))
+            return out
 
 
 def _device(lmap) -> torch.device:

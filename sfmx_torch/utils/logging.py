@@ -1,11 +1,17 @@
-"""Structured stage logging (port of ``sfmx.utils.logging``): one JSON line
-per pipeline stage with its metrics (#matches, #inliers, pairs kept,
-#tracks, wall seconds), so runs are machine-comparable.
+"""Spans and structured stage records (port of ``sfmx.utils.logging``).
 
-A scope is also a ``torch.profiler.record_function`` range, so a profiler
-trace shows the stages by name.  A stage's wall time is host time: it
-covers the device work only where the stage waits for a result (each
-stage of the map-build front end reads a count back, which does).
+Two separate things:
+
+- ``span(name)``: a ``torch.profiler.record_function`` range and nothing
+  else (no record, no readback, no clock read), so a profiler trace shows
+  the code by name on the profiler's clock.  With no profiler recording it
+  opens nothing and costs one check of the profiler's state.  The serving
+  path opens only spans.
+- ``LOGGER.scope(stage)``: a span that also writes one JSON line for the
+  stage with its metrics (#matches, #inliers, pairs kept, #tracks, wall
+  seconds), so runs are machine-comparable.  A stage's wall time is host
+  time: it covers the device work only where the stage waits for a result
+  (each stage of the map-build front end reads a count back, which does).
 """
 from __future__ import annotations
 
@@ -13,6 +19,19 @@ import contextlib
 import json
 import sys
 import time
+
+import torch
+from torch.profiler import record_function
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A profiler range named ``name`` around a ``with`` block, opened only
+    while a profiler records: a ``record_function`` enter or exit is an
+    operator call that may hand the GIL to another thread, and a serving
+    batch opens a dozen spans while the event loop's thread wants the GIL."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 class StageLogger:
@@ -32,11 +51,10 @@ class StageLogger:
 
     @contextlib.contextmanager
     def scope(self, stage: str, **extra):
-        """Times a stage; the caller fills the yielded dict with metrics."""
-        from torch.profiler import record_function
-
+        """Times a stage under ``span(stage)``; the caller fills the yielded
+        dict with metrics."""
         t0 = time.perf_counter()
-        with record_function(stage):
+        with span(stage):
             out = {}
             yield out
         self.log(stage, wall_s=round(time.perf_counter() - t0, 4), **extra, **out)

@@ -263,8 +263,8 @@ def _extract_records(err: str) -> list[dict]:
 def test_localize_logs_the_reference_extract_record(image_dirs, built, capsys):
     """One ``localize`` call of each package on one store writes one
     ``extract`` record, with the same keys and the same image count and
-    extractor (the port's localize and serve extract through the same
-    ``extract_features``)."""
+    extractor (the port's localize extracts through ``extract_features``;
+    its service extracts through ``_extract_raw`` and writes no record)."""
     from sfmx.cli import main as jmain
 
     _, d_q, _ = image_dirs
